@@ -1,10 +1,10 @@
-// Native layout-planner core for bricklib_tpu.
+// Native layout-planner core for brickjax.
 //
 // The reference's layout machinery is C++ templates evaluated inline in
 // the hot setup path (include/brick.h, include/bricksetup.h:30-90,
-// include/brick-mpi.h:266-296).  The TPU rebuild plans on the host; this
+// include/brick-mpi.h:266-296).  The JAX rebuild plans on the host; this
 // library provides the O(nbricks * 3^dims) pieces natively for large
-// grids, bound via ctypes (bricklib_tpu/core/native.py) with a numpy
+// grids, bound via ctypes (brickjax/core/native.py) with a numpy
 // fallback.  Semantics are golden-tested against the Python planner.
 //
 // Build: make -C csrc   (g++ -O3 -shared -fPIC)

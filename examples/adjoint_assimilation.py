@@ -1,5 +1,5 @@
 """Differentiable stencils (beyond the reference): recover an initial
-condition by gradient descent THROUGH the Pallas fast path.
+condition by gradient descent THROUGH the pencil sweep.
 
 The pencil sweep is a linear operator ``y = A x``; ``codegen.autodiff``
 registers its exact reverse-mode rule (the adjoint stencil — same
@@ -20,10 +20,10 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))   # repo root, for uninstalled checkouts
 
-from bricklib_tpu.codegen.autodiff import differentiable_pencil_sweep
-from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-from bricklib_tpu.core import to_bricks
-from bricklib_tpu.st import ConstRef, Grid, Index, load_stencil_module
+from brickjax.codegen.autodiff import differentiable_pencil_sweep
+from brickjax.comm import BrickDecomp, skinlist_by_name
+from brickjax.core import to_bricks
+from brickjax.st import ConstRef, Grid, Index, load_stencil_module
 
 i, j, k = Index(0), Index(1), Index(2)
 g, o = Grid("in", 3), Grid("out", 3)
@@ -46,8 +46,7 @@ def main():
     sdef = load_stencil_module({"STENCIL": STENCIL})[0]
     params = {"d": 0.07, "u": 0.11}
 
-    # pencil folds need i % 128 == 0 on hardware (lane tiles);
-    # BRICK_EXAMPLE_N shrinks interpret-mode runs (tests)
+    # BRICK_EXAMPLE_N shrinks test runs
     n = int(os.environ.get("BRICK_EXAMPLE_N", "128"))
     BD = (8, 8, n) if n % 128 == 0 else (4, 4, n)
     dec = BrickDecomp(dims=(n, n, n), ghost_depth=(BD[0], BD[1], 0),

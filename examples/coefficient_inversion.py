@@ -1,10 +1,10 @@
 """Inverse problem through the fast path (beyond the reference):
 recover a spatially varying diffusion coefficient c(x) from observed
-states, with the Pallas kernel as the forward model.
+states, with the pencil sweep as the forward model.
 
 ``codegen.differentiable_poly_sweep`` registers the EXACT pullback for
 variable-coefficient stencils — one adjoint PENCIL sweep per field,
-Pallas forward AND backward, O(1) activation memory — so plain
+sweep forward AND backward, O(1) activation memory — so plain
 gradient descent fits c(x) with both directions at stencil speed
 (round 4; the dense-twin oracle now serves only systems and If/max):
 
@@ -22,10 +22,10 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))   # repo root, for uninstalled checkouts
 
-from bricklib_tpu.codegen import differentiable_poly_sweep
-from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-from bricklib_tpu.core import to_bricks
-from bricklib_tpu.st import Grid, Index, load_stencil_module
+from brickjax.codegen import differentiable_poly_sweep
+from brickjax.comm import BrickDecomp, skinlist_by_name
+from brickjax.core import to_bricks
+from brickjax.st import Grid, Index, load_stencil_module
 
 i, j, k = Index(0), Index(1), Index(2)
 u, c, o = Grid("u", 3), Grid("c", 3), Grid("out", 3)
@@ -44,8 +44,7 @@ def main():
 
     sdef = load_stencil_module({"STENCIL": STENCIL})[0]
 
-    # pencil folds need i % 128 == 0 on hardware (lane tiles);
-    # BRICK_EXAMPLE_N shrinks interpret-mode runs (tests)
+    # BRICK_EXAMPLE_N shrinks test runs
     n = int(os.environ.get("BRICK_EXAMPLE_N", "128"))
     BD = (8, 8, n) if n % 128 == 0 else (4, 4, n)
     dec = BrickDecomp(dims=(n, n, n), ghost_depth=(BD[0], BD[1], 0),

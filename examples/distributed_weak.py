@@ -1,5 +1,5 @@
 """Distributed example: domain decomposition over a device mesh with
-deep-ghost iteration amortization and the kernel-fused exchange —
+deep-ghost iteration amortization and the SHIFT exchange —
 the reference's weak-scaling flow (weak/main.cpp) through the
 high-level Problem API.
 
@@ -34,13 +34,12 @@ def main():
                   [sys.executable, os.path.abspath(__file__), "--inner"],
                   env)
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.codegen import dense_apply
-    from bricklib_tpu.stencils import stencil_by_name
+    from brickjax.api import Problem
+    from brickjax.codegen import dense_apply
+    from brickjax.stencils import stencil_by_name
 
-    mesh = (2, 2, 1)          # devices per domain axis (k, j; i on-chip)
-    # per-device owned elements; BRICK_EXAMPLE_DIMS shrinks
-    # interpret-mode runs (tests)
+    mesh = (2, 2, 1)          # devices per domain axis (k, j; i local)
+    # per-device owned elements; BRICK_EXAMPLE_DIMS shrinks test runs
     dims = tuple(int(x) for x in os.environ.get(
         "BRICK_EXAMPLE_DIMS", "32,32,128").split(","))
     st_iter = 4               # iterations per ghost exchange (deep-ghost)
@@ -51,7 +50,7 @@ def main():
 
     p = Problem(dims=dims, mesh=mesh, stencil="mpi7pt",
                 bdims=(8, 8, dims[2]), backend="pencil",
-                st_iter=st_iter, exchange="fused")
+                st_iter=st_iter)
     p.init(array=field).step(1)       # one step = exchange + 4 sweeps
     got = p.result()
 
@@ -63,7 +62,7 @@ def main():
         w = dense_apply(sd, {"in": wp}, p.params, xp=np)
     err = float(np.abs(got - w).max())
     print(f"mesh {mesh}  domain {gshape}  ST_ITER {st_iter}  "
-          f"exchange fused-in-kernel")
+          f"SHIFT exchange")
     print(f"max |err| vs dense periodic twin: {err:.2e}")
     assert err < 1e-4
     print("OK")

@@ -20,8 +20,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))   # repo root, for uninstalled checkouts
 
-from bricklib_tpu.api import Problem
-from bricklib_tpu.st import ConstRef, Grid, Index, load_stencil_module
+from brickjax.api import Problem
+from brickjax.st import ConstRef, Grid, Index, load_stencil_module
 
 i, j, k = Index(0), Index(1), Index(2)
 u, v = Grid("u", 3), Grid("v", 3)
@@ -49,8 +49,7 @@ def main():
     params = {"dt": 0.8, "Du": 0.16, "Dv": 0.08, "F": 0.035,
               "K": 0.065}
 
-    # pencil folds need i % 128 == 0 on hardware (lane tiles);
-    # BRICK_EXAMPLE_N shrinks interpret-mode runs (tests)
+    # BRICK_EXAMPLE_N shrinks test runs
     n = int(os.environ.get("BRICK_EXAMPLE_N", "128"))
     rng = np.random.default_rng(0)
     u0 = np.ones((n, n, n), np.float32)

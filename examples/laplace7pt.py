@@ -13,8 +13,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))   # repo root, for uninstalled checkouts
 
-from bricklib_tpu.api import Problem
-from bricklib_tpu.st import ConstRef, Grid, Index, load_stencil_module
+from brickjax.api import Problem
+from brickjax.st import ConstRef, Grid, Index, load_stencil_module
 
 # -- define a stencil exactly like a reference stencil module ----------
 i, j, k = Index(0), Index(1), Index(2)
@@ -33,8 +33,7 @@ def main():
     sdef = load_stencil_module({"STENCIL": STENCIL})[0]
     params = {"alpha": 0.4, "beta": 0.1}
 
-    # pencil folds need i % 128 == 0 on hardware (lane tiles);
-    # BRICK_EXAMPLE_N shrinks interpret-mode runs (tests)
+    # BRICK_EXAMPLE_N shrinks test runs
     n = int(os.environ.get("BRICK_EXAMPLE_N", "128"))
     rng = np.random.default_rng(0)
     field = rng.random((n, n, n), dtype=np.float32)

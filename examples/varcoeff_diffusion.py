@@ -16,8 +16,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))   # repo root, for uninstalled checkouts
 
-from bricklib_tpu.api import Problem
-from bricklib_tpu.st import ConstRef, Grid, Index, load_stencil_module
+from brickjax.api import Problem
+from brickjax.st import ConstRef, Grid, Index, load_stencil_module
 
 # -- define the two-grid stencil ---------------------------------------
 i, j, k = Index(0), Index(1), Index(2)
@@ -42,8 +42,7 @@ def main():
     sdef = load_stencil_module({"STENCIL": STENCIL})[0]
     params = {"dt": 0.05}
 
-    # pencil folds need i % 128 == 0 on hardware (lane tiles);
-    # BRICK_EXAMPLE_N shrinks interpret-mode runs (tests)
+    # BRICK_EXAMPLE_N shrinks test runs
     n = int(os.environ.get("BRICK_EXAMPLE_N", "128"))
     rng = np.random.default_rng(0)
     u0 = rng.random((n, n, n), dtype=np.float32)
@@ -77,7 +76,7 @@ def main():
 
     # --- exact gradients wrt u AND the coefficient field c -----------
     # (the inverse problem).  differentiable_step builds the
-    # POLYNOMIAL adjoint pullback: Pallas forward + one adjoint pencil
+    # POLYNOMIAL adjoint pullback: sweep forward + one adjoint pencil
     # sweep per field, O(1) activation memory (codegen.autodiff.
     # differentiable_poly_sweep — round-4 exact mode; the dense oracle
     # now serves only systems and If/max stencils).
@@ -105,7 +104,7 @@ def main():
     du, dc = jax.grad(lambda uc: jnp.sum(
         dense_step(uc[0], uc[1]) ** 2))((ud, jnp.asarray(cf)))
 
-    from bricklib_tpu.core import from_bricks
+    from brickjax.core import from_bricks
 
     def unstage(b):
         full = from_bricks(np.asarray(b).reshape(p.dec.nbricks, -1),

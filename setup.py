@@ -2,9 +2,9 @@
 
 The reference installs its C++ library and proves an out-of-tree
 consumer builds against it (ref: examples/external/CMakeLists.txt,
-examples/external/main.cpp).  The TPU rebuild's native piece is the
+examples/external/main.cpp).  The rebuild's native piece is the
 ctypes layout planner (csrc/); at wheel-build time we compile it into
-``bricklib_tpu/_native/`` so installed packages keep the fast path.
+``brickjax/_native/`` so installed packages keep the fast path.
 If no toolchain is available the build silently skips — the runtime
 falls back to the numpy planner (core/native.py returns None).
 """
@@ -30,7 +30,7 @@ class build_py_with_native(build_py):
             except Exception:
                 return
         if so.exists():
-            dest = pathlib.Path(self.build_lib) / "bricklib_tpu" / "_native"
+            dest = pathlib.Path(self.build_lib) / "brickjax" / "_native"
             dest.mkdir(parents=True, exist_ok=True)
             shutil.copy2(so, dest / so.name)
 

@@ -1,19 +1,18 @@
 """Differentiable pencil sweeps (codegen.autodiff).
 
-Fast tier: the adjoint stencil is algebraically the transpose
-(inner-product identity on a periodic dense domain, numpy only).
-Slow tier: jax.grad through the Pallas kernel (custom_vjp) matches
-jax.grad through the differentiable dense twin, including chained
-steps and temporal fusion.
+The adjoint stencil is algebraically the transpose (inner-product
+identity on a periodic dense domain, numpy only), and jax.grad through
+the pencil sweep (custom_vjp) matches jax.grad through the
+differentiable dense twin, including chained steps and temporal fusion.
 """
 
 import numpy as np
 import pytest
 
-from bricklib_tpu.codegen import (adjoint_stencil, dense_apply,
+from brickjax.codegen import (adjoint_stencil, dense_apply,
                                   linear_decomposition)
-from bricklib_tpu.st import ConstRef, Grid, Index, load_stencil_module
-from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
+from brickjax.st import ConstRef, Grid, Index, load_stencil_module
+from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
 
 def _asym_stencil():
@@ -82,7 +81,7 @@ def test_adjoint_rejects_nonlinear():
         adjoint_stencil(sd)
 
 
-# ---------------------------------------------------------------- slow
+# ------------------------------------------------- gradients vs dense
 
 
 @pytest.fixture(scope="module")
@@ -90,9 +89,9 @@ def _grad_setup():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import differentiable_pencil_sweep
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-    from bricklib_tpu.core import to_bricks
+    from brickjax.codegen.autodiff import differentiable_pencil_sweep
+    from brickjax.comm import BrickDecomp, skinlist_by_name
+    from brickjax.core import to_bricks
 
     N = 16
     BD = (4, 4, N)
@@ -113,12 +112,12 @@ def _grad_setup():
     xb = jnp.asarray(stage(x))
     wb = stage(w)
     wb[dec.sep_pos[1]:] = 0.0   # weigh OWNED rows only (ghost rows of
-    wb[0] = 0.0                 # a Pallas output are undefined)
+    wb[0] = 0.0                 # a sweep output are undefined)
     wb = jnp.asarray(wb)
 
     def make(fuse=1):
         return differentiable_pencil_sweep(
-            sd, tgrid, BD, dec.nbricks, params, interpret=True,
+            sd, tgrid, BD, dec.nbricks, params,
             fuse=fuse)
 
     return dict(N=N, BD=BD, dec=dec, sd=sd, params=params, x=x, w=w,
@@ -126,7 +125,7 @@ def _grad_setup():
 
 
 def _unstage(dec, BD, g):
-    from bricklib_tpu.core import from_bricks
+    from brickjax.core import from_bricks
 
     N = BD[2]
     full = from_bricks(np.asarray(g).reshape(dec.nbricks, -1), dec.grid,
@@ -134,7 +133,6 @@ def _unstage(dec, BD, g):
     return full[BD[0]:BD[0] + N, BD[1]:BD[1] + N, :]
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("steps", [1, 2])
 def test_grad_matches_dense_twin(_grad_setup, steps):
     s = _grad_setup
@@ -162,13 +160,12 @@ def test_grad_matches_dense_twin(_grad_setup, steps):
     got = _unstage(s["dec"], s["BD"], gb)
     np.testing.assert_allclose(got, np.asarray(gd), rtol=2e-5,
                                atol=2e-5)
-    # masked rows carry exact zeros, not Pallas garbage
+    # masked rows carry exact zeros, not stale data
     assert float(np.abs(np.asarray(gb)[0]).max()) == 0.0
     assert float(np.abs(np.asarray(gb)[s["dec"].sep_pos[1]:]).max()) \
         == 0.0
 
 
-@pytest.mark.slow
 def test_grad_fused_equals_composed(_grad_setup):
     s = _grad_setup
     jax, jnp = s["jax"], s["jnp"]
@@ -181,7 +178,6 @@ def test_grad_fused_equals_composed(_grad_setup):
         _unstage(s["dec"], s["BD"], g1), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.slow
 def test_grad_distributed_exchange_sweep():
     """jax.grad through the full distributed step — exchange_shift
     (AD-transparent ppermutes under shard_map) composed with the
@@ -192,11 +188,11 @@ def test_grad_distributed_exchange_sweep():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from bricklib_tpu.codegen.autodiff import differentiable_pencil_sweep
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-    from bricklib_tpu.comm.exchange import exchange_shift
-    from bricklib_tpu.comm.mesh import make_domain_mesh, shard_map
-    from bricklib_tpu.core import from_bricks, to_bricks
+    from brickjax.codegen.autodiff import differentiable_pencil_sweep
+    from brickjax.comm import BrickDecomp, skinlist_by_name
+    from brickjax.comm.exchange import exchange_shift
+    from brickjax.comm.mesh import make_domain_mesh, shard_map
+    from brickjax.core import from_bricks, to_bricks
 
     mesh_shape = (2, 2, 1)
     dims = (16, 16, 32)            # per-device owned elements
@@ -212,7 +208,7 @@ def test_grad_distributed_exchange_sweep():
     P_ = P(tuple(names))
 
     dstep = differentiable_pencil_sweep(
-        sd, kgrid, BD, nb, params, interpret=True, exchanged_axes=(0, 1))
+        sd, kgrid, BD, nb, params, exchanged_axes=(0, 1))
 
     def step2(d):
         for _ in range(2):
@@ -283,7 +279,6 @@ def test_grad_distributed_exchange_sweep():
         assert float(np.abs(blk[dec.sep_pos[1]:]).max()) == 0.0
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("mesh", [(1, 1, 1), (2, 1, 1)])
 def test_problem_differentiable_step(mesh):
     """Problem.differentiable_step: jax.grad through the user-facing
@@ -292,7 +287,7 @@ def test_problem_differentiable_step(mesh):
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     dims = (16, 16, 32)
     sd, params = _asym_stencil(), _ASYM_PARAMS
@@ -328,7 +323,7 @@ def test_problem_differentiable_step(mesh):
 
     gd = np.asarray(jax.grad(loss_dense)(jnp.asarray(x)))
 
-    from bricklib_tpu.core import from_bricks
+    from brickjax.core import from_bricks
 
     nb = p.dec.nbricks
     gbn = np.asarray(gb)
@@ -346,8 +341,8 @@ def test_exchanged_axes_rejects_fuse():
     inject cotangent into outer ghost elements where the exact
     transpose is zero, and the exchange transpose routes that garbage
     into the neighbors' owned gradients.  Must be rejected at build."""
-    from bricklib_tpu.codegen.autodiff import differentiable_pencil_sweep
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
+    from brickjax.codegen.autodiff import differentiable_pencil_sweep
+    from brickjax.comm import BrickDecomp, skinlist_by_name
 
     BD = (4, 4, 16)
     dec = BrickDecomp(dims=(16, 16, 16), ghost_depth=(4, 4, 0),
@@ -356,16 +351,16 @@ def test_exchanged_axes_rejects_fuse():
     with pytest.raises(ValueError, match="fuse"):
         differentiable_pencil_sweep(
             _asym_stencil(), kg, BD, dec.nbricks, _ASYM_PARAMS,
-            exchanged_axes=(0,), fuse=2, interpret=True)
+            exchanged_axes=(0,), fuse=2)
     # and a non-periodic table on a NON-exchanged axis is rejected too
     with pytest.raises(ValueError, match="periodic"):
         differentiable_pencil_sweep(
             _asym_stencil(), dec.periodic_grid((2,)), BD, dec.nbricks,
-            _ASYM_PARAMS, exchanged_axes=(0,), interpret=True)
+            _ASYM_PARAMS, exchanged_axes=(0,))
 
 
 def test_problem_differentiable_step_rejects_deep_ghost():
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     p = Problem(dims=(16, 16, 32), mesh=(2, 1, 1),
                 stencil=_asym_stencil(), params=_ASYM_PARAMS,
@@ -407,7 +402,7 @@ def test_poly_adjoint_matches_dense_ad(which):
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import polynomial_adjoint_stencils
+    from brickjax.codegen.autodiff import polynomial_adjoint_stencils
 
     sd = _varcoeff_stencil()
     adjs, ct = polynomial_adjoint_stencils(sd)
@@ -436,7 +431,7 @@ def test_poly_adjoint_nonlinear_product_rule():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import polynomial_adjoint_stencils
+    from brickjax.codegen.autodiff import polynomial_adjoint_stencils
 
     i, j, k = Index(0), Index(1), Index(2)
     u, o = Grid("u", 3), Grid("out", 3)
@@ -458,8 +453,8 @@ def test_poly_adjoint_nonlinear_product_rule():
 def test_poly_expansion_rejects_unknown_function():
     """If/max now differentiate exactly (round 5); only opaque
     functions with no registered derivative rule are rejected."""
-    from bricklib_tpu.codegen.autodiff import polynomial_adjoint_stencils
-    from bricklib_tpu.st import Func
+    from brickjax.codegen.autodiff import polynomial_adjoint_stencils
+    from brickjax.st import Func
 
     i, j, k = Index(0), Index(1), Index(2)
     g, o = Grid("u", 3), Grid("out", 3)
@@ -469,17 +464,16 @@ def test_poly_expansion_rejects_unknown_function():
         polynomial_adjoint_stencils(sd)
 
 
-@pytest.mark.slow
 def test_poly_sweep_grads_match_dense(interpret=True):
-    """differentiable_poly_sweep: jax.grad through the Pallas forward
+    """differentiable_poly_sweep: jax.grad through the sweep forward
     runs adjoint PENCIL sweeps (no dense twin) — grads wrt u and c
     match dense AD on the periodic table."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import differentiable_poly_sweep
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-    from bricklib_tpu.core import to_bricks
+    from brickjax.codegen.autodiff import differentiable_poly_sweep
+    from brickjax.comm import BrickDecomp, skinlist_by_name
+    from brickjax.core import to_bricks
 
     N = 16
     BD = (4, 4, N)
@@ -487,8 +481,7 @@ def test_poly_sweep_grads_match_dense(interpret=True):
                       bdims=BD).initialize(skinlist_by_name("good", 3))
     sd = _varcoeff_stencil()
     step = differentiable_poly_sweep(
-        sd, dec.periodic_grid((0, 1, 2)), BD, dec.nbricks, _VC_PARAMS,
-        interpret=True)
+        sd, dec.periodic_grid((0, 1, 2)), BD, dec.nbricks, _VC_PARAMS)
 
     def stage(a):
         idx = [np.arange(-g, N + g) % N for g in (4, 4, 0)]
@@ -523,17 +516,16 @@ def test_poly_sweep_grads_match_dense(interpret=True):
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.slow
 def test_problem_poly_diff_step_distributed_aux_grads():
     """Problem.differentiable_step on a variable-coefficient stencil
-    over an 8-device (2, 4, 1) mesh: exact Pallas adjoint sweeps, ghost
+    over an 8-device (2, 4, 1) mesh: exact adjoint sweeps, ghost
     cotangent riding the exchange transpose, and AUX-field gradients
     routed home through the in-graph aux exchange — vs global dense AD."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import from_bricks
+    from brickjax.api import Problem
+    from brickjax.core import from_bricks
 
     mesh = (2, 4, 1)
     dims = (8, 8, 32)              # per-device owned elements
@@ -594,25 +586,23 @@ def _gray_scott_defs():
     return load_stencil_module({"STENCIL": [ou, ov]})
 
 
-@pytest.mark.slow
 def test_oracle_vjp_nonlinear_system():
-    """oracle_vjp_sweep: Pallas forward + dense-oracle pullback on the
+    """oracle_vjp_sweep: sweep forward + dense-oracle pullback on the
     NONLINEAR Gray-Scott system — jax.grad wrt both fields matches
     jax.grad through the pure dense twin."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import oracle_vjp_sweep
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-    from bricklib_tpu.core import to_bricks
+    from brickjax.codegen.autodiff import oracle_vjp_sweep
+    from brickjax.comm import BrickDecomp, skinlist_by_name
+    from brickjax.core import to_bricks
 
     N = 16
     BD = (4, 4, N)
     dec = BrickDecomp(dims=(N, N, N), ghost_depth=(4, 4, 0),
                       bdims=BD).initialize(skinlist_by_name("good", 3))
     sds = _gray_scott_defs()
-    step = oracle_vjp_sweep(sds, dec, BD, {}, fields=("u", "v"),
-                            interpret=True)
+    step = oracle_vjp_sweep(sds, dec, BD, {}, fields=("u", "v"))
 
     def stage(a):
         idx = [np.arange(-g, N + g) % N for g in (4, 4, 0)]
@@ -658,17 +648,16 @@ def test_oracle_vjp_nonlinear_system():
                                    atol=2e-5)
 
 
-@pytest.mark.slow
 def test_oracle_vjp_aux_coefficient_grad():
     """Gradients wrt a STATIC aux coefficient field (the inverse
-    problem: estimate c(x) from observations) through the Pallas
+    problem: estimate c(x) from observations) through the pencil
     forward."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import oracle_vjp_sweep
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-    from bricklib_tpu.core import to_bricks
+    from brickjax.codegen.autodiff import oracle_vjp_sweep
+    from brickjax.comm import BrickDecomp, skinlist_by_name
+    from brickjax.core import to_bricks
 
     i, j, k = Index(0), Index(1), Index(2)
     u, c, o = Grid("u", 3), Grid("c", 3), Grid("out", 3)
@@ -683,8 +672,7 @@ def test_oracle_vjp_aux_coefficient_grad():
     BD = (4, 4, N)
     dec = BrickDecomp(dims=(N, N, N), ghost_depth=(4, 4, 0),
                       bdims=BD).initialize(skinlist_by_name("good", 3))
-    step = oracle_vjp_sweep(sd, dec, BD, {}, fields=("u",),
-                            interpret=True)
+    step = oracle_vjp_sweep(sd, dec, BD, {}, fields=("u",))
 
     def stage(a):
         idx = [np.arange(-g, N + g) % N for g in (4, 4, 0)]
@@ -730,8 +718,8 @@ def test_rejects_ghost_inclusive_range_on_periodic_axis():
     a table-periodic axis writes each skin brick twice through the
     ring alias (last-write-wins corruption) and made the periodicity
     check vacuous — must be rejected at build."""
-    from bricklib_tpu.codegen.autodiff import differentiable_pencil_sweep
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
+    from brickjax.codegen.autodiff import differentiable_pencil_sweep
+    from brickjax.comm import BrickDecomp, skinlist_by_name
 
     BD = (4, 4, 16)
     dec = BrickDecomp(dims=(16, 16, 16), ghost_depth=(4, 4, 0),
@@ -741,11 +729,11 @@ def test_rejects_ghost_inclusive_range_on_periodic_axis():
     with pytest.raises(ValueError, match="ghost ring"):
         differentiable_pencil_sweep(
             _asym_stencil(), tg, BD, dec.nbricks, _ASYM_PARAMS,
-            k_range=(0, GK), interpret=True)
+            k_range=(0, GK))
 
 
 def test_decomp_owned_mask():
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
+    from brickjax.comm import BrickDecomp, skinlist_by_name
 
     dec = BrickDecomp(dims=(16, 16, 16), ghost_depth=(4, 4, 0),
                       bdims=(4, 4, 16)).initialize(
@@ -774,17 +762,16 @@ def test_fuzz_adjoint_inner_product(seed):
     np.testing.assert_allclose(lhs, rhs, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.slow
 def test_grad_4d_matches_dense_twin():
     """4-D differentiable sweep: jax.grad through the 4-D pencil
     kernel (asymmetric taps, fuse=1 and fuse=2) vs the dense twin."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import (
+    from brickjax.codegen.autodiff import (
         differentiable_pencil_sweep_4d)
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-    from bricklib_tpu.core import from_bricks, to_bricks
+    from brickjax.comm import BrickDecomp, skinlist_by_name
+    from brickjax.core import from_bricks, to_bricks
 
     i, j, k, w = Index(0), Index(1), Index(2), Index(3)
     g, o = Grid("in", 4), Grid("out", 4)
@@ -833,7 +820,7 @@ def test_grad_4d_matches_dense_twin():
 
     for fuse, nsteps in ((1, 1), (2, 2)):
         step = differentiable_pencil_sweep_4d(
-            sd, tg, BD, dec.nbricks, {}, interpret=True, fuse=fuse)
+            sd, tg, BD, dec.nbricks, {}, fuse=fuse)
         gb = jax.grad(lambda d: jnp.sum(step(d) * wb))(xb)
         gd = jax.grad(lambda d: jnp.sum(
             dense_steps(d, nsteps) * jnp.asarray(wgt)))(jnp.asarray(x))
@@ -841,7 +828,6 @@ def test_grad_4d_matches_dense_twin():
                                    rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.slow
 def test_problem_differentiable_step_system_and_aux():
     """Problem.differentiable_step oracle mode: gradients for a
     nonlinear two-field system AND for a static aux coefficient field
@@ -849,7 +835,7 @@ def test_problem_differentiable_step_system_and_aux():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     # --- nonlinear system (Gray-Scott shape) --------------------------
     sds = _gray_scott_defs()
@@ -880,7 +866,7 @@ def test_problem_differentiable_step_system_and_aux():
                                    for n in sds[0].inputs}, {})
         return jnp.sum(out * jnp.asarray(w))
 
-    from bricklib_tpu.core import from_bricks
+    from brickjax.core import from_bricks
 
     def unst(dec, BD, b):
         full = from_bricks(np.asarray(b).reshape(dec.nbricks, -1),
@@ -936,7 +922,7 @@ def test_system_adjoint_matches_dense_ad():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import polynomial_system_adjoints
+    from brickjax.codegen.autodiff import polynomial_system_adjoints
 
     sds = _gray_scott_defs()
     adjs, cts = polynomial_system_adjoints(sds)
@@ -967,7 +953,7 @@ def test_system_adjoint_matches_dense_ad():
 def test_system_adjoint_single_output_consistency():
     """A one-entry system's adjoints equal the single-output builder's
     (same stencils, same cotangent naming contract)."""
-    from bricklib_tpu.codegen.autodiff import (
+    from brickjax.codegen.autodiff import (
         polynomial_adjoint_stencils, polynomial_system_adjoints)
 
     sd = _varcoeff_stencil()
@@ -980,7 +966,7 @@ def test_system_adjoint_single_output_consistency():
 
 def _canon_poly(sdef):
     """Canonical monomial multiset for stencil comparison."""
-    from bricklib_tpu.codegen.autodiff import _expand_monomials
+    from brickjax.codegen.autodiff import _expand_monomials
 
     out = []
     for s, c, refs in _expand_monomials(sdef.rhs):
@@ -988,19 +974,18 @@ def _canon_poly(sdef):
     return sorted(out, key=repr)
 
 
-@pytest.mark.slow
 def test_poly_system_sweep_grads_match_dense():
     """differentiable_poly_system_sweep: jax.grad through the ONE
-    multi-output Pallas forward runs adjoint PENCIL sweeps (no dense
+    multi-output sweep forward runs adjoint PENCIL sweeps (no dense
     twin) — grads wrt both coupled fields match dense AD on the
     periodic table."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import (
+    from brickjax.codegen.autodiff import (
         differentiable_poly_system_sweep)
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-    from bricklib_tpu.core import to_bricks
+    from brickjax.comm import BrickDecomp, skinlist_by_name
+    from brickjax.core import to_bricks
 
     N = 16
     BD = (4, 4, N)
@@ -1009,7 +994,7 @@ def test_poly_system_sweep_grads_match_dense():
     sds = _gray_scott_defs()
     step = differentiable_poly_system_sweep(
         sds, dec.periodic_grid((0, 1, 2)), BD, dec.nbricks,
-        ("u", "v"), {}, interpret=True)
+        ("u", "v"), {})
     assert step.ct_names == ("ou_ct", "ov_ct")
 
     def stage(a):
@@ -1054,7 +1039,6 @@ def test_poly_system_sweep_grads_match_dense():
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.slow
 def test_problem_poly_system_diff_step_distributed():
     """Problem.differentiable_step on the coupled Gray-Scott SYSTEM
     over an 8-device (2, 4, 1) mesh — previously oracle-only and
@@ -1063,8 +1047,8 @@ def test_problem_poly_system_diff_step_distributed():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import from_bricks
+    from brickjax.api import Problem
+    from brickjax.core import from_bricks
 
     mesh = (2, 4, 1)
     dims = (8, 8, 32)              # per-device owned elements
@@ -1111,7 +1095,6 @@ def test_problem_poly_system_diff_step_distributed():
 # ------------------------------------------------ differentiable rollout
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("seg", [None, 1, 3])
 def test_differentiable_rollout_matches_composed(seg):
     """differentiable_rollout(n): forward equals n composed
@@ -1120,7 +1103,7 @@ def test_differentiable_rollout_matches_composed(seg):
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     dims = (16, 16, 32)
     p = Problem(dims=dims, stencil="mpi7pt", bdims=(4, 4, dims[2]),
@@ -1147,7 +1130,6 @@ def test_differentiable_rollout_matches_composed(seg):
                                atol=2e-5)
 
 
-@pytest.mark.slow
 def test_differentiable_rollout_distributed_system():
     """differentiable_rollout on the distributed coupled SYSTEM:
     4 steps / 2-step remat segments over a (2, 2, 1) mesh — gradient
@@ -1155,8 +1137,8 @@ def test_differentiable_rollout_distributed_system():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import from_bricks
+    from brickjax.api import Problem
+    from brickjax.core import from_bricks
 
     mesh = (2, 2, 1)
     dims = (8, 8, 32)
@@ -1203,7 +1185,7 @@ def test_differentiable_rollout_distributed_system():
 
 
 def test_differentiable_rollout_validates_args():
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     p = Problem(dims=(16, 16, 32), stencil="mpi7pt",
                 bdims=(4, 4, 32), backend="pencil", st_iter=1)
@@ -1228,7 +1210,7 @@ def test_piecewise_adjoint_matches_dense_ad():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import polynomial_adjoint_stencils
+    from brickjax.codegen.autodiff import polynomial_adjoint_stencils
 
     sd = stencil_by_name("cond")[0]
     adjs, ct = polynomial_adjoint_stencils(sd)
@@ -1261,8 +1243,8 @@ def test_piecewise_adjoint_abs_sqrt_exp():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import polynomial_adjoint_stencils
-    from bricklib_tpu.st import Func, If
+    from brickjax.codegen.autodiff import polynomial_adjoint_stencils
+    from brickjax.st import Func, If
 
     i, j, k = Index(0), Index(1), Index(2)
     g, o = Grid("u", 3), Grid("out", 3)
@@ -1290,16 +1272,15 @@ def test_piecewise_adjoint_abs_sqrt_exp():
                                rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.slow
 def test_cond_pencil_grads_match_dense():
     """differentiable_poly_sweep on cond (If/max): jax.grad through the
-    Pallas forward + adjoint pencil sweep matches dense AD."""
+    sweep forward + adjoint pencil sweep matches dense AD."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import differentiable_poly_sweep
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-    from bricklib_tpu.core import to_bricks
+    from brickjax.codegen.autodiff import differentiable_poly_sweep
+    from brickjax.comm import BrickDecomp, skinlist_by_name
+    from brickjax.core import to_bricks
 
     N = 16
     BD = (4, 4, N)
@@ -1308,7 +1289,7 @@ def test_cond_pencil_grads_match_dense():
     sd = stencil_by_name("cond")[0]
     step = differentiable_poly_sweep(
         sd, dec.periodic_grid((0, 1, 2)), BD, dec.nbricks,
-        _COND_PARAMS, interpret=True)
+        _COND_PARAMS)
     assert step.fields == ("bIn",)
 
     def stage(a):
@@ -1334,15 +1315,14 @@ def test_cond_pencil_grads_match_dense():
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.slow
 def test_problem_cond_differentiable_step():
     """Problem.differentiable_step on cond now takes the EXACT pullback
     (no oracle): gradient matches dense AD through one step."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import from_bricks
+    from brickjax.api import Problem
+    from brickjax.core import from_bricks
 
     N = 16
     dims = (N, N, N)
@@ -1374,7 +1354,7 @@ def test_problem_cond_differentiable_step():
 
 
 # ---------------------------------------------------------------------------
-# fused differentiable poly/system steps (round 5): the fused Pallas forward
+# fused differentiable poly/system steps (round 5): the fused sweep forward
 # keeps its 1/F HBM traffic; the pullback recomputes F unfused exact steps
 # (_fuse_by_recompute) — grads must match the composed unfused chain exactly
 # ---------------------------------------------------------------------------
@@ -1383,7 +1363,7 @@ def test_problem_cond_differentiable_step():
 def _stage_cube(dec, BD, N, a):
     import jax.numpy as jnp
 
-    from bricklib_tpu.core import to_bricks
+    from brickjax.core import to_bricks
 
     idx = [np.arange(-g, N + g) % N for g in (4, 4, 0)]
     dat = np.zeros((dec.nbricks, int(np.prod(BD))), np.float32)
@@ -1391,7 +1371,6 @@ def _stage_cube(dec, BD, N, a):
     return jnp.asarray(dat.reshape((dec.nbricks,) + BD))
 
 
-@pytest.mark.slow
 def test_fused_poly_sweep_grads_match_composed():
     """differentiable_poly_sweep(fuse=2) on a var-coeff stencil: the
     fused forward and its recompute pullback are BIT-EXACT to two
@@ -1399,8 +1378,8 @@ def test_fused_poly_sweep_grads_match_composed():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import differentiable_poly_sweep
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
+    from brickjax.codegen.autodiff import differentiable_poly_sweep
+    from brickjax.comm import BrickDecomp, skinlist_by_name
 
     N = 16
     BD = (4, 4, N)
@@ -1408,10 +1387,8 @@ def test_fused_poly_sweep_grads_match_composed():
                       bdims=BD).initialize(skinlist_by_name("good", 3))
     tg = dec.periodic_grid((0, 1, 2))
     sd = _varcoeff_stencil()
-    f1 = differentiable_poly_sweep(sd, tg, BD, dec.nbricks, _VC_PARAMS,
-                                   interpret=True)
-    f2 = differentiable_poly_sweep(sd, tg, BD, dec.nbricks, _VC_PARAMS,
-                                   interpret=True, fuse=2)
+    f1 = differentiable_poly_sweep(sd, tg, BD, dec.nbricks, _VC_PARAMS)
+    f2 = differentiable_poly_sweep(sd, tg, BD, dec.nbricks, _VC_PARAMS, fuse=2)
 
     rng = np.random.default_rng(7)
     u0 = _stage_cube(dec, BD, N, rng.random((N, N, N), np.float32))
@@ -1434,16 +1411,15 @@ def test_fused_poly_sweep_grads_match_composed():
         assert float(jnp.max(jnp.abs(a - b))) == 0.0
 
 
-@pytest.mark.slow
 def test_fused_system_sweep_grads_match_composed():
     """differentiable_poly_system_sweep(fuse=2) on a coupled system:
     fused forward + recompute pullback vs two composed unfused steps."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.codegen.autodiff import (
+    from brickjax.codegen.autodiff import (
         differentiable_poly_system_sweep)
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
+    from brickjax.comm import BrickDecomp, skinlist_by_name
 
     i, j, k = Index(0), Index(1), Index(2)
     u, v = Grid("u", 3), Grid("v", 3)
@@ -1464,9 +1440,9 @@ def test_fused_system_sweep_grads_match_composed():
                       bdims=BD).initialize(skinlist_by_name("good", 3))
     tg = dec.periodic_grid((0, 1, 2))
     f1 = differentiable_poly_system_sweep(
-        sds, tg, BD, dec.nbricks, ("u", "v"), params, interpret=True)
+        sds, tg, BD, dec.nbricks, ("u", "v"), params)
     f2 = differentiable_poly_system_sweep(
-        sds, tg, BD, dec.nbricks, ("u", "v"), params, interpret=True,
+        sds, tg, BD, dec.nbricks, ("u", "v"), params,
         fuse=2)
 
     rng = np.random.default_rng(9)
@@ -1503,16 +1479,15 @@ def test_fused_system_sweep_grads_match_composed():
         assert float(jnp.max(jnp.abs(a - b))) == 0.0
 
 
-@pytest.mark.slow
 def test_problem_fused_differentiable_step_cond():
-    """Problem.differentiable_step on cond with st_iter=2 (auto-fused
-    generic path): the FUSED differentiable step's gradient matches
+    """Problem.differentiable_step on cond with st_iter=2 fused
+    (generic path): the FUSED differentiable step's gradient matches
     dense AD through two composed steps."""
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import from_bricks
+    from brickjax.api import Problem
+    from brickjax.core import from_bricks
 
     N = 16
     dims = (N, N, N)
@@ -1520,10 +1495,10 @@ def test_problem_fused_differentiable_step_cond():
     def make():
         return Problem(dims=dims, stencil="cond", bdims=(4, 4, N),
                        backend="pencil", st_iter=2,
-                       params=_COND_PARAMS)
+                       params=_COND_PARAMS, schedule=dict(fuse=2))
 
     p = make()
-    assert p.fuse == 2    # cond auto-fuses (generic_pass_estimate)
+    assert p.fuse == 2
     fn = p.differentiable_step()
     rng = np.random.default_rng(17)
     u0 = rng.random(dims, np.float32) - 0.45
@@ -1548,7 +1523,6 @@ def test_problem_fused_differentiable_step_cond():
     np.testing.assert_allclose(own, want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.slow
 def test_problem_cond_diff_step_distributed():
     """DISTRIBUTED cond (If/max): the piecewise exact pullback runs on
     a (2, 2, 1) mesh — gate masks recompute from exchanged residual
@@ -1558,8 +1532,8 @@ def test_problem_cond_diff_step_distributed():
     import jax
     import jax.numpy as jnp
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import from_bricks
+    from brickjax.api import Problem
+    from brickjax.core import from_bricks
 
     mesh = (2, 2, 1)
     dims = (8, 8, 32)

@@ -4,16 +4,13 @@ Outside the reference's f64 tolerance contract (documented opt-in);
 checked against the f32 dense twin at bf16-appropriate tolerance."""
 
 import numpy as np
-import pytest
 
 import jax.numpy as jnp
 
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_stencil
-from bricklib_tpu.core import from_bricks, init_grid, random_array, to_bricks
-from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
-
-pytestmark = pytest.mark.slow
+from brickjax.codegen import dense_apply
+from brickjax.codegen.sweep import pencil_sweep
+from brickjax.core import from_bricks, init_grid, random_array, to_bricks
+from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
 
 def test_pencil_bf16_matches_f32_loosely():
@@ -26,9 +23,8 @@ def test_pencil_bf16_matches_f32_loosely():
     view16 = jnp.asarray(dat.reshape((-1,) + BD), jnp.bfloat16)
 
     sd = stencil_by_name("mpi7pt")[0]
-    fn = pallas_pencil_stencil(sd, grid, BD, (1, 1), info.nbricks,
-                               DEFAULT_PARAMS, dtype=jnp.bfloat16,
-                               interpret=True)
+    fn = pencil_sweep(sd, grid, BD, info.nbricks,
+                               DEFAULT_PARAMS, dtype=jnp.bfloat16)
     out = np.asarray(fn(view16), dtype=np.float32)
 
     corep = np.pad(core, 1, mode="wrap")

@@ -5,7 +5,7 @@ drivers (ref: weak/main.cpp:87-94, stencils/fake.h:376-377)."""
 import numpy as np
 import pytest
 
-from bricklib_tpu.core import (
+from brickjax.core import (
     Brick,
     BrickStorage,
     adj_index,

@@ -4,8 +4,8 @@ brick-mpi.h layout contract)."""
 import numpy as np
 import pytest
 
-from bricklib_tpu.comm import BrickDecomp, skin3d_good, skin3d_bad, skinlist_by_name
-from bricklib_tpu.utils.bitset import allneighbors
+from brickjax.comm import BrickDecomp, skin3d_good, skin3d_bad, skinlist_by_name
+from brickjax.utils.bitset import allneighbors
 
 
 @pytest.fixture(scope="module")

@@ -6,10 +6,10 @@ end-to-end and matches the dense periodic twin exactly.
 
 import numpy as np
 
-from bricklib_tpu.api import Problem
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.st import Grid, Index
-from bricklib_tpu.st.loader import load_stencil_module
+from brickjax.api import Problem
+from brickjax.codegen import dense_apply
+from brickjax.st import Grid, Index
+from brickjax.st.loader import load_stencil_module
 
 
 def _sd5():

@@ -5,7 +5,7 @@ and the graft entry points."""
 
 
 def test_weak_driver_3d_and_overlap(capsys):
-    from bricklib_tpu.drivers import weak
+    from brickjax.drivers import weak
 
     r1 = weak.run(dims=(16, 16, 16), bdim=(4, 4, 8), stencil="mpi7pt",
                   st_iter=2, mesh_shape=(2, 2, 2), iters=3)
@@ -18,7 +18,7 @@ def test_weak_driver_3d_and_overlap(capsys):
 
 
 def test_weak_driver_4d():
-    from bricklib_tpu.drivers import weak
+    from brickjax.drivers import weak
 
     weak.run(dims=(4, 4, 8, 16), bdim=(2, 2, 4, 8),
              stencil="mpi9pt", st_iter=1, mesh_shape=(2, 1, 2, 2),
@@ -28,7 +28,7 @@ def test_weak_driver_4d():
 def test_weak_driver_13pt_deep_ghost():
     """radius-2 stencil, 2 iterations on one exchange (ST_ITER ghost
     trade, ref: weak/main.cpp:203-212)."""
-    from bricklib_tpu.drivers import weak
+    from brickjax.drivers import weak
 
     weak.run(dims=(16, 16, 16), bdim=(4, 4, 8), stencil="mpi13pt",
              st_iter=2, mesh_shape=(2, 2, 2), iters=2)
@@ -40,11 +40,13 @@ def test_graft_entry_dryrun():
     ge.dryrun_multichip(8)
 
 
-def test_graft_entry_single():
+def test_graft_entry_single(monkeypatch, tmp_path):
     import jax
 
     import __graft_entry__ as ge
 
+    # entry() turns the compile cache on; keep it out of the checkout
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     fn, args = ge.entry()
     out = jax.jit(fn)(*args)
     assert out.shape == args[0].shape

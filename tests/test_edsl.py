@@ -2,10 +2,10 @@
 
 import pytest
 
-from bricklib_tpu.st import ConstRef, Grid, Index, load_stencil_module
-from bricklib_tpu.st.grid import eval_offset
-from bricklib_tpu.codegen.ir import linear_decomposition
-from bricklib_tpu.stencils import stencil_by_name
+from brickjax.st import ConstRef, Grid, Index, load_stencil_module
+from brickjax.st.grid import eval_offset
+from brickjax.codegen.ir import linear_decomposition
+from brickjax.stencils import stencil_by_name
 
 
 def test_eval_offset_affine():
@@ -79,9 +79,9 @@ def test_linear_decomposition_groups():
 
 def test_reference_style_module_loads_via_st_alias():
     """A stencil written against the reference's `from st.expr import ...`
-    API loads unchanged (the loader aliases st -> bricklib_tpu.st)."""
-    import bricklib_tpu.st  # triggers nothing; alias happens in loader
-    from bricklib_tpu.st.loader import _alias_st
+    API loads unchanged (the loader aliases st -> brickjax.st)."""
+    import brickjax.st  # triggers nothing; alias happens in loader
+    from brickjax.st.loader import _alias_st
     _alias_st()
     src = (
         "from st.expr import Index, ConstRef\n"

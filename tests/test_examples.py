@@ -1,14 +1,11 @@
 """The examples are executable documentation — run each one end-to-end
-at interpret-mode sizes (they self-validate against numpy twins and
-raise on mismatch).  Slow tier: each builds at least one Pallas kernel.
+at small sizes (they self-validate against numpy twins and raise on
+mismatch).
 """
 
 import os
 import runpy
 
-import pytest
-
-pytestmark = pytest.mark.slow
 
 _EXAMPLES = os.path.join(os.path.dirname(__file__), os.pardir,
                          "examples")
@@ -35,8 +32,7 @@ def test_gray_scott(monkeypatch):
 
 def test_distributed_weak(monkeypatch):
     # conftest provides 8 virtual CPU devices, so the example runs its
-    # mesh inline (no re-exec); the fused exchange needs >= 4 owned
-    # brick rows per exchanged axis (interior-first reorder warmup)
+    # mesh inline (no re-exec)
     _run("distributed_weak.py", monkeypatch,
          BRICK_EXAMPLE_DIMS="32,32,32")
 

@@ -9,15 +9,14 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from bricklib_tpu.comm import BrickDecomp, skin3d_good
-from bricklib_tpu.comm.exchange import (
+from brickjax.comm import BrickDecomp, skin3d_good
+from brickjax.comm.exchange import (
     exchange_array,
     exchange_put,
     exchange_shift,
-    exchange_shift_remote,
 )
-from bricklib_tpu.comm.mesh import make_domain_mesh, shard_map
-from bricklib_tpu.core import (
+from brickjax.comm.mesh import make_domain_mesh, shard_map
+from brickjax.core import (
     compare_arrays,
     from_bricks,
     random_array,
@@ -64,90 +63,30 @@ def _stack_bricks(dec, blocks, zero_ghost=True):
     return out
 
 
-@pytest.mark.parametrize("which", ["put", "shift", "shift-remote"])
+@pytest.mark.parametrize("which", ["put", "shift"])
 def test_brick_exchange_fills_ghost(which):
     dec = _decomp()
     _, blocks = _global_and_blocks()
     stacked = _stack_bricks(dec, blocks, zero_ghost=True)
 
-    if which == "shift-remote":
-        # kernel-level remote DMA: interpret mode emulates the ICI
-        # copies over ONE named axis, so shard over the flat device
-        # axis (identical placement — ravel order matches MESH_SHAPE)
-        from jax.sharding import Mesh
+    mesh = make_domain_mesh(MESH_SHAPE)
+    names = mesh.axis_names
+    fn = exchange_put if which == "put" else exchange_shift
 
-        ndev = int(np.prod(MESH_SHAPE))
-        mesh = Mesh(np.asarray(jax.devices()[:ndev]), ("dev",))
+    def step(dat):
+        d = dat[0, 0, 0]
+        d = fn(d, dec, names, MESH_SHAPE)
+        return d[None, None, None]
 
-        def step(dat):
-            d = exchange_shift_remote(dat[0], dec, ("dev",), MESH_SHAPE)
-            return d[None]
-
-        sharded = jax.device_put(
-            jnp.asarray(stacked.reshape((ndev,) + stacked.shape[3:])),
-            NamedSharding(mesh, P("dev")))
-        out = jax.jit(shard_map(step, mesh, P("dev"), P("dev")))(sharded)
-        out = np.asarray(out).reshape(stacked.shape)
-    else:
-        mesh = make_domain_mesh(MESH_SHAPE)
-        names = mesh.axis_names
-        fn = exchange_put if which == "put" else exchange_shift
-
-        def step(dat):
-            d = dat[0, 0, 0]
-            d = fn(d, dec, names, MESH_SHAPE)
-            return d[None, None, None]
-
-        sharded = jax.device_put(
-            jnp.asarray(stacked),
-            NamedSharding(mesh, P(*names)))
-        out = jax.jit(shard_map(step, mesh, P(*names), P(*names)))(sharded)
-        out = np.asarray(out)
+    sharded = jax.device_put(
+        jnp.asarray(stacked),
+        NamedSharding(mesh, P(*names)))
+    out = jax.jit(shard_map(step, mesh, P(*names), P(*names)))(sharded)
+    out = np.asarray(out)
 
     for c, blk in blocks.items():
         got = from_bricks(out[c], dec.grid, BD)
         assert compare_arrays(got, blk, 1e-7), (which, c)
-
-
-def test_remote_exchange_mixed_local_and_ici():
-    """One kernel carrying both remote DMAs (distributed axes) and
-    in-place local self-copies (1-device axis) must equal the XLA-level
-    SHIFT exchange bit for bit — including corner forwarding through the
-    mixed stages."""
-    from jax.sharding import Mesh
-
-    mesh_shape = (2, 2, 1)
-    ndev = int(np.prod(mesh_shape))
-    dec = _decomp()
-    rng = np.random.default_rng(7)
-    stacked = rng.standard_normal(
-        (ndev, dec.nbricks, int(np.prod(BD)))).astype(np.float32)
-
-    mesh3 = make_domain_mesh(mesh_shape)
-    names3 = mesh3.axis_names
-    want_in = jax.device_put(
-        jnp.asarray(stacked.reshape(mesh_shape + stacked.shape[1:])),
-        NamedSharding(mesh3, P(*names3)))
-
-    def step3(dat):
-        d = exchange_shift(dat[0, 0, 0], dec, names3, mesh_shape)
-        return d[None, None, None]
-
-    want = np.asarray(jax.jit(shard_map(
-        step3, mesh3, P(*names3), P(*names3)))(want_in))
-    want = want.reshape(stacked.shape)
-
-    mesh1 = Mesh(np.asarray(jax.devices()[:ndev]), ("dev",))
-
-    def step1(dat):
-        d = exchange_shift_remote(dat[0], dec, ("dev",), mesh_shape)
-        return d[None]
-
-    got_in = jax.device_put(jnp.asarray(stacked),
-                            NamedSharding(mesh1, P("dev")))
-    got = np.asarray(jax.jit(shard_map(
-        step1, mesh1, P("dev"), P("dev")))(got_in))
-    np.testing.assert_array_equal(got, want)
 
 
 def test_array_exchange_twin():
@@ -182,8 +121,8 @@ def test_weak_scaling_step_brick_vs_array():
     """Full weak-scaling step: exchange + mpi7pt stencil, brick path vs
     array path (the reference's flagship validation,
     weak/main.cpp:137-170)."""
-    from bricklib_tpu.codegen import brick_apply, dense_apply
-    from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
+    from brickjax.codegen import brick_apply, dense_apply
+    from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
     sd = stencil_by_name("mpi7pt")[0]
     dec = _decomp()
@@ -218,77 +157,13 @@ def test_weak_scaling_step_brick_vs_array():
         assert compare_arrays(got, want_own, 1e-5), c
 
 
-def test_remote_exchange_4d():
-    """The kernel-level remote exchange is rank-generic: 4-D decomp on a
-    (2,1,2,1) mesh equals the XLA SHIFT exchange bit for bit."""
-    from jax.sharding import Mesh
-
-    from bricklib_tpu.comm import skinlist_by_name
-
-    mesh_shape = (2, 1, 2, 1)
-    ndev = int(np.prod(mesh_shape))
-    bd = (2, 2, 4, 16)
-    dec = BrickDecomp(dims=(4, 4, 8, 32), ghost_depth=bd,
-                      bdims=bd).initialize(skinlist_by_name("lex", 4))
-    rng = np.random.default_rng(13)
-    stacked = rng.standard_normal(
-        (ndev, dec.nbricks, int(np.prod(bd)))).astype(np.float32)
-
-    mesh4 = make_domain_mesh(mesh_shape)
-    n4 = mesh4.axis_names
-    want_in = jax.device_put(
-        jnp.asarray(stacked.reshape(mesh_shape + stacked.shape[1:])),
-        NamedSharding(mesh4, P(*n4)))
-
-    def step4(dat):
-        d = exchange_shift(dat[0, 0, 0, 0], dec, n4, mesh_shape)
-        return d[None, None, None, None]
-
-    want = np.asarray(jax.jit(shard_map(
-        step4, mesh4, P(*n4), P(*n4)))(want_in)).reshape(stacked.shape)
-
-    mesh1 = Mesh(np.asarray(jax.devices()[:ndev]), ("dev",))
-
-    def step1(dat):
-        d = exchange_shift_remote(dat[0], dec, ("dev",), mesh_shape)
-        return d[None]
-
-    got_in = jax.device_put(jnp.asarray(stacked),
-                            NamedSharding(mesh1, P("dev")))
-    got = np.asarray(jax.jit(shard_map(
-        step1, mesh1, P("dev"), P("dev")))(got_in))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_put_plan_deep_ghost_ring():
-    """Deep ghost (2 brick rings in k) is a first-class put_plan config
-    (the reference's free GZ, brick-mpi.h:304-316): every ghost/skin
-    pair still lands in the plan with its gate group, and the k-face
-    runs span both rings."""
-    from bricklib_tpu.comm.exchange import put_plan
-
-    dec = BrickDecomp(dims=(24, 16, 32), ghost_depth=(8, 4, 0),
-                      bdims=(4, 4, 32)).initialize(skin3d_good)
-    plan = put_plan(dec, (2, 2, 1), (2,))
-    assert len(plan) == len([
-        gr for gr in dec.ghost
-        if not ({dec._tag_axis(t) for t in gr.neighbor} & {2})])
-    klo = [e for e in plan if e[6] == "klo"]
-    khi = [e for e in plan if e[6] == "khi"]
-    assert klo and khi
-    # each pure-k face moves 2 rings x owned j pencils of bricks
-    nj = dec.grid.shape[1] - 2          # owned j columns (1 ring/side)
-    assert sum(e[2] - e[1] for e in klo) == 2 * nj
-    assert sum(e[2] - e[1] for e in khi) == 2 * nj
-
-
 @pytest.mark.parametrize("seed", range(5))
 def test_exchange_geometry_fuzz(seed):
     """Random decomp geometry (mesh shape, brick fold, skin ordering,
     PUT vs SHIFT) against the global-wrap ground truth — the exchange
     must be correct for ANY layout the planner accepts, not just the
     canonical test shapes."""
-    from bricklib_tpu.comm import skinlist_by_name
+    from brickjax.comm import skinlist_by_name
 
     rng = np.random.default_rng(500 + seed)
     meshes = [(2, 2, 2), (2, 2, 1), (2, 1, 2), (1, 2, 2), (4, 2, 1),
@@ -335,3 +210,11 @@ def test_exchange_geometry_fuzz(seed):
     for c, blk in blocks.items():
         got = from_bricks(out[c], dec.grid, bd)
         assert compare_arrays(got, blk, 1e-7), (seed, which, order, c)
+
+
+@pytest.mark.parametrize("shape", [(4, 4, 1), (1, 1, 16)])
+def test_domain_mesh_raises_with_too_few_devices(shape):
+    """A mesh larger than the device count raises; it never falls back
+    to devices of another platform."""
+    with pytest.raises(ValueError, match="needs 16 devices"):
+        make_domain_mesh(shape)

@@ -4,10 +4,10 @@ analog."""
 
 import numpy as np
 
-from bricklib_tpu.comm import BrickDecomp, skin3d_good
-from bricklib_tpu.core import compare_arrays, from_bricks, init_grid, random_array, to_bricks
-from bricklib_tpu.core.fake import fake_stencil
-from bricklib_tpu.codegen.vecscatter import describe
+from brickjax.comm import BrickDecomp, skin3d_good
+from brickjax.core import compare_arrays, from_bricks, init_grid, random_array, to_bricks
+from brickjax.core.fake import fake_stencil
+from brickjax.codegen.vecscatter import describe
 
 
 def test_fake_stencil_dense_vs_decomp_layout():

@@ -16,19 +16,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_stencil
-from bricklib_tpu.core import (
+from brickjax.codegen import dense_apply
+from brickjax.codegen.sweep import pencil_sweep
+from brickjax.core import (
     compare_arrays,
     from_bricks,
     init_grid,
     random_array,
     to_bricks,
 )
-from bricklib_tpu.st import FloatLiteral, Grid, Index
-from bricklib_tpu.st.loader import load_stencil_module
-
-pytestmark = pytest.mark.slow
+from brickjax.st import FloatLiteral, Grid, Index
+from brickjax.st.loader import load_stencil_module
 
 BD = (4, 8, 16)
 G = (5, 5, 1)
@@ -66,8 +64,7 @@ def test_fuzz_pencil_matches_dense(seed):
     ext = np.pad(core, ((BD[0], BD[0]), (BD[1], BD[1]), (0, 0)),
                  mode="wrap")
     view = jnp.asarray(to_bricks(ext, grid, BD).reshape((-1,) + BD))
-    fn = pallas_pencil_stencil(sd, grid, BD, (1, 1), info.nbricks, {},
-                               interpret=True)
+    fn = pencil_sweep(sd, grid, BD, info.nbricks, {})
     out = np.asarray(fn(view))
     lo, hi = sd.radius()
     corep = np.pad(core, [(l, h) for l, h in zip(lo, hi)], mode="wrap")
@@ -120,7 +117,7 @@ def _dense_steps_4d(sd, g, n):
 def test_fuzz_pencil_4d_matches_dense(seed):
     """Random 4-D stencil: F=1 always, plus F=2 when the fused
     contamination bounds admit it (guards the w/j ring extensions)."""
-    from bricklib_tpu.codegen.pencil_kernel_4d import pallas_pencil_sweep_4d
+    from brickjax.codegen.sweep import pencil_sweep
 
     rng = np.random.default_rng(4000 + seed)
     sd = _random_stencil_4d(rng)
@@ -137,8 +134,7 @@ def test_fuzz_pencil_4d_matches_dense(seed):
            for l, h, b in zip(lo[:3], hi[:3], BD4[:3])):
         fuses.append(2)
     for F in fuses:
-        fn = pallas_pencil_sweep_4d(sd, grid, BD4, info.nbricks, {},
-                                    interpret=True, fuse=F)
+        fn = pencil_sweep(sd, grid, BD4, info.nbricks, {}, fuse=F)
         got = from_bricks(np.asarray(fn(view)),
                           grid[1:-1, 1:-1, 1:-1], BD4)
         want = _dense_steps_4d(sd, core, F)

@@ -1,24 +1,18 @@
 """Generic-path (nonlinear) scheduling: memoized evaluation, additive
-coefficient grouping, pass estimate, and fused-generic correctness —
-the TPU analog of the reference's Reduction grouping + live-buffer
-scheduling for arbitrary stencils (ref: codegen/st/codegen/base.py:
-108-239, dag_opt.py:159-290).
+coefficient grouping and fused-generic correctness — the analog of the
+reference's Reduction grouping + live-buffer scheduling for arbitrary
+stencils (ref: codegen/st/codegen/base.py:108-239, dag_opt.py:159-290).
 """
 
 import numpy as np
-import pytest
 
 import jax.numpy as jnp
 
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.codegen.ir import (
-    StencilIR,
-    additive_groups,
-    generic_pass_estimate,
-)
-from bricklib_tpu.st import ConstRef, Func, Grid, Index, If
-from bricklib_tpu.st.loader import load_stencil_module
-from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
+from brickjax.codegen import dense_apply
+from brickjax.codegen.ir import additive_groups
+from brickjax.st import ConstRef, Func, Grid, Index, If
+from brickjax.st.loader import load_stencil_module
+from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
 
 def _sym_nonlinear():
@@ -51,15 +45,6 @@ def test_additive_groups_none_for_singletons():
     assert additive_groups(stencil_by_name("cond")[0].rhs) is None
 
 
-def test_generic_pass_estimate_dedups_shared_nodes():
-    # cond's If(calc > 0, calc, -calc) shares the `calc` subtree three
-    # times; memoized evaluation costs it once
-    assert generic_pass_estimate(stencil_by_name("cond")[0]) == 30
-    sd = _sym_nonlinear()
-    # 7 taps + 7 max + (7 mul + 6 add - 5 grouped) = 22
-    assert generic_pass_estimate(sd) == 22
-
-
 def test_grouped_generic_run_matches_plain_eval():
     """dense_apply (which routes through _run's grouped generic path)
     equals a direct numpy evaluation of the same stencil."""
@@ -82,19 +67,19 @@ def test_problem_autofuses_nonlinear():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     p = Problem(dims=(16, 16, 32), stencil="cond", bdims=(4, 4, 32),
-                backend="pencil", st_iter=4)
+                backend="pencil", st_iter=4, schedule=dict(fuse=4))
     assert p.fuse == 4
     assert p.describe()["fuse"] == 4
 
 
 def test_fused_generic_cond_matches_composed():
-    """Fused generic (If/max) kernel == two composed sweeps, bit-exact
-    (the correctness basis of the nonlinear auto-fuse gate)."""
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
-    from bricklib_tpu.comm import BrickDecomp, skin3d_good
+    """Fused generic (If/max) sweep == two composed sweeps, bit-exact
+    (the correctness basis of fusing nonlinear stencils)."""
+    from brickjax.codegen.sweep import pencil_sweep
+    from brickjax.comm import BrickDecomp, skin3d_good
 
     params = dict(DEFAULT_PARAMS)
     params["coeff"] = [0.03 * (c + 1) for c in range(27)]
@@ -103,10 +88,8 @@ def test_fused_generic_cond_matches_composed():
                       bdims=bd).initialize(skin3d_good)
     tg = dec.periodic_grid((0, 1, 2))
     sd = stencil_by_name("cond")[0]
-    f2 = pallas_pencil_sweep(sd, tg, bd, dec.nbricks, params,
-                             interpret=True, fuse=2)
-    f1 = pallas_pencil_sweep(sd, tg, bd, dec.nbricks, params,
-                             interpret=True)
+    f2 = pencil_sweep(sd, tg, bd, dec.nbricks, params, fuse=2)
+    f1 = pencil_sweep(sd, tg, bd, dec.nbricks, params)
     dat = np.random.default_rng(3).standard_normal(
         (dec.nbricks,) + bd).astype(np.float32)
     a = np.asarray(f2(jnp.asarray(dat)))

@@ -2,7 +2,7 @@
 
 The reference proves an out-of-tree consumer can build against the
 installed library (ref: examples/external/main.cpp,
-examples/external/CMakeLists.txt).  The TPU analog: ``pip install`` the
+examples/external/CMakeLists.txt).  The analog here: ``pip install`` the
 repo into a scratch target dir, then run a 7pt Problem from a subprocess
 whose import path contains ONLY the installed copy (cwd=/tmp, PYTHONPATH
 pinned) and compare against the dense twin.
@@ -21,16 +21,16 @@ DRIVE = """
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
-import bricklib_tpu, pathlib, sys
+import brickjax, pathlib, sys
 
-pkg = pathlib.Path(bricklib_tpu.__file__).resolve()
+pkg = pathlib.Path(brickjax.__file__).resolve()
 target = pathlib.Path(sys.argv[1]).resolve()
 assert target in pkg.parents, f"imported {pkg}, not the installed copy"
 
-from bricklib_tpu.api import Problem
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.core import compare_arrays, random_array
-from bricklib_tpu.stencils import stencil_by_name
+from brickjax.api import Problem
+from brickjax.codegen import dense_apply
+from brickjax.core import compare_arrays, random_array
+from brickjax.stencils import stencil_by_name
 
 g = random_array((16, 16, 32), np.float32, 4)
 p = Problem(dims=(16, 16, 32), stencil="mpi7pt", bdims=(4, 4, 8),

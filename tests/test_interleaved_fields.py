@@ -8,17 +8,17 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from bricklib_tpu.codegen import brick_apply, dense_apply
-from bricklib_tpu.comm import BrickDecomp, skin3d_good
-from bricklib_tpu.comm.exchange import exchange_shift
-from bricklib_tpu.comm.mesh import make_domain_mesh, shard_map
-from bricklib_tpu.core import (
+from brickjax.codegen import brick_apply, dense_apply
+from brickjax.comm import BrickDecomp, skin3d_good
+from brickjax.comm.exchange import exchange_shift
+from brickjax.comm.mesh import make_domain_mesh, shard_map
+from brickjax.core import (
     compare_arrays,
     from_bricks,
     random_array,
     to_bricks,
 )
-from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
+from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
 BD = (4, 4, 8)
 BEL = 128

@@ -5,15 +5,15 @@ stencil — the reference's array-vs-brick compare
 import numpy as np
 import pytest
 
-from bricklib_tpu.codegen import brick_apply, dense_apply
-from bricklib_tpu.core import (
+from brickjax.codegen import brick_apply, dense_apply
+from brickjax.core import (
     compare_arrays,
     from_bricks,
     init_grid,
     random_array,
     to_bricks,
 )
-from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
+from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
 PARAMS = dict(DEFAULT_PARAMS)
 PARAMS["coeff"] = [0.03 * (c + 1) for c in range(27)]

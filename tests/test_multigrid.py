@@ -6,7 +6,7 @@ pencil emitter streams one rolling window per field over ONE shared
 grid table.  Both the factorized-linear path (field-tagged k-profiles,
 ir.fold_linear fields=) and the generic evaluator path (grid x grid
 products = variable-coefficient stencils) are validated against the
-dense twin in interpret mode.
+dense twin.
 """
 
 import numpy as np
@@ -14,19 +14,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_stencil
-from bricklib_tpu.core import (
+from brickjax.codegen import dense_apply
+from brickjax.codegen.sweep import pencil_sweep
+from brickjax.core import (
     compare_arrays,
     from_bricks,
     init_grid,
     random_array,
     to_bricks,
 )
-from bricklib_tpu.st import ConstRef, Grid, Index
-from bricklib_tpu.st.loader import load_stencil_module
-
-pytestmark = pytest.mark.slow
+from brickjax.st import ConstRef, Grid, Index
+from brickjax.st.loader import load_stencil_module
 
 BD = (2, 4, 16)
 G = (6, 5, 1)
@@ -81,8 +79,8 @@ def test_two_grid_pencil_matches_dense(make):
         views[n] = jnp.asarray(
             to_bricks(ext, grid, BD).reshape((-1,) + BD))
 
-    fn = pallas_pencil_stencil(sd, grid, BD, (1, 1), info.nbricks,
-                               PARAMS, interpret=True)
+    fn = pencil_sweep(sd, grid, BD, info.nbricks,
+                               PARAMS)
     out = np.asarray(fn(*(views[n] for n in fn.fields)))
 
     lo, hi = sd.radius()
@@ -94,24 +92,17 @@ def test_two_grid_pencil_matches_dense(make):
 
 
 def test_two_grid_guards():
-    """The single-input-only emitters must reject multi-input stencils
-    instead of silently merging fields; fused multi-input sweeps build
-    (per-field rings for the evolving grid, windows for aux) but reject
-    inplace composition."""
-    from bricklib_tpu.codegen.fused_exchange import pallas_pencil_sweep_fusedx
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
+    """Fused multi-input sweeps build (the evolving grid iterates, aux
+    stays on its window) but inplace partial sweeps reject multi-input
+    stencils instead of silently merging fields."""
+    from brickjax.codegen.sweep import pencil_sweep
 
     sd = _linear_two_grid()
     grid, _info = init_grid(G)
-    fn = pallas_pencil_sweep(sd, grid, BD, 30, PARAMS, fuse=2,
-                             interpret=True)
+    fn = pencil_sweep(sd, grid, BD, 30, PARAMS, fuse=2)
     assert fn.fields == tuple(sd.inputs)
     with pytest.raises(NotImplementedError, match="one input grid"):
-        pallas_pencil_sweep(sd, grid, BD, 30, PARAMS, inplace=True,
-                            interpret=True)
-    with pytest.raises(NotImplementedError, match="one input grid"):
-        pallas_pencil_sweep_fusedx(sd, grid[:, :, 0], BD, 30, [],
-                                   (1, 1, 1), PARAMS, interpret=True)
+        pencil_sweep(sd, grid, BD, 30, PARAMS, inplace=True)
 
 
 def _dense_aux_steps(sd, field, state, auxs, n, params):
@@ -129,7 +120,7 @@ def _dense_aux_steps(sd, field, state, auxs, n, params):
 def test_problem_aux_field_pencil():
     """Variable-coefficient Problem on the pencil backend: the static
     aux field rides along unexchanged; state ping-pongs."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _varcoeff_two_grid()
     state = random_array((16, 16, 32), np.float32, 3)
@@ -144,7 +135,7 @@ def test_problem_aux_field_pencil():
 def test_problem_aux_field_jnp_distributed_deep_ghost():
     """Aux fields on an 8-device mesh with st_iter=2: aux ghost filled
     once at init by wrap never goes stale, so deep-ghost composes."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _linear_two_grid()
     state = random_array((16, 16, 32), np.float32, 5)
@@ -158,7 +149,7 @@ def test_problem_aux_field_jnp_distributed_deep_ghost():
 
 
 def test_problem_aux_validation():
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _linear_two_grid()
     with pytest.raises(ValueError, match="not a stencil input"):
@@ -168,16 +159,15 @@ def test_problem_aux_validation():
                 backend="jnp", bdims=(8, 8, 16), params=PARAMS)
     with pytest.raises(ValueError, match="aux"):
         p.init(seed=0)          # missing aux array for "b"
-    with pytest.raises(ValueError, match="fused"):
-        Problem(dims=(16, 16, 32), stencil=sd, field="a",
-                backend="pencil", bdims=(4, 4, 32), mesh=(2, 1, 1),
-                exchange="fused")
+    with pytest.raises(ValueError, match="unknown aux"):
+        p.init(seed=0, aux={"b": np.zeros((16, 16, 32), np.float32),
+                            "c": np.zeros((16, 16, 32), np.float32)})
 
 
 def test_problem_aux_field_pencil_distributed():
     """Aux field on a (2,1,1) mesh with the pencil backend and
     deep-ghost st_iter: state exchanges per step, aux never does."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _linear_two_grid()
     state = random_array((16, 16, 32), np.float32, 7)
@@ -190,30 +180,9 @@ def test_problem_aux_field_pencil_distributed():
     assert compare_arrays(q.result(), want, 1e-4)
 
 
-@pytest.mark.parametrize("make", [_linear_two_grid, _varcoeff_two_grid])
-def test_two_grid_dense_pallas(make):
-    """The dense-array Pallas twin (tile(...) analog) takes one padded
-    array per field, matching dense_apply."""
-    from bricklib_tpu.codegen.pallas_backend import pallas_dense_stencil
-
-    sd = make()
-    arrs = {n: random_array((24, 32, 128), np.float32, 31 + fi)
-            for fi, n in enumerate(sd.inputs)}
-    pad = (4, 8, 48)
-    fn = pallas_dense_stencil(sd, (24, 32, 128), pad, PARAMS,
-                              tile_elems=(8, 8), interpret=True)
-    out = np.asarray(fn(*(jnp.asarray(arrs[n]) for n in fn.fields)))
-    want = dense_apply(sd, arrs, PARAMS, xp=np)
-    lo, hi = sd.radius()
-    got = out[4:-4, 8:-8, 48:-48]
-    want_c = want[tuple(slice(p - l, p - l + s) for p, l, s in
-                        zip(pad, lo, got.shape))]
-    assert compare_arrays(got, want_c, 1e-5)
-
-
 def test_problem_init_validation_leaves_uninitialized():
     """A failed init (missing aux) must not leave half-loaded state."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _linear_two_grid()
     p = Problem(dims=(16, 16, 32), stencil=sd, field="a",
@@ -227,7 +196,7 @@ def test_problem_init_validation_leaves_uninitialized():
 def test_problem_auto_backend_4d_multigrid_falls_back_to_jnp():
     """backend='auto' must not pick a pencil configuration it will
     then reject (4-D multi-input)."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     a, b, out = Grid("a", 4), Grid("b", 4), Grid("out", 4)
     i, j, k, w = Index(0), Index(1), Index(2), Index(3)

@@ -1,22 +1,20 @@
-"""Multi-slice (DCN) 2-level mesh: slices x ICI (SURVEY §5's "+DCN for
-multi-slice" mapping; the reference's arbitrary MPI_Cart topologies,
-ref: weak/args.cpp:105-108, brick-mpi.h:730-753).
+"""Two-level mesh: nodes x cards (the reference's arbitrary MPI_Cart
+topologies, ref: weak/args.cpp:105-108, brick-mpi.h:730-753).
 
-On the 8-virtual-CPU-device harness a "slice" is just another device
+On the 8-virtual-CPU-device harness a "node" is just another device
 group — what these tests prove is the TOPOLOGY plumbing: the composite
-(slice, ici) ppermute axis, slice-major placement, staging, and plan
+(slice, card) ppermute axis, node-major placement, staging, and plan
 reporting all agree with the plain single-level mesh and the dense
-twin.  On real hardware the same program's cross-slice pairs lower to
-DCN collective-permutes.
+twin.
 """
 
 import numpy as np
 import pytest
 
-from bricklib_tpu.api import Problem
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.core import compare_arrays, random_array
-from bricklib_tpu.stencils import stencil_by_name
+from brickjax.api import Problem
+from brickjax.codegen import dense_apply
+from brickjax.core import compare_arrays, random_array
+from brickjax.stencils import stencil_by_name
 
 
 def _dense_steps(g, name, n, params):
@@ -30,7 +28,7 @@ def _dense_steps(g, name, n, params):
 
 
 def test_multislice_jnp_matches_dense():
-    # 2 slices x (1, 2, 2) ICI = 8 devices; domain axis 0 spans
+    # 2 nodes x (1, 2, 2) cards = 8 devices; domain axis 0 spans
     # (slice, z) as one composite ppermute line
     g = random_array((16, 16, 32), np.float32, 21)
     p = Problem(dims=(8, 8, 16), stencil="mpi7pt", mesh=(1, 2, 2),
@@ -53,7 +51,6 @@ def test_multislice_matches_single_level():
     np.testing.assert_array_equal(a.result(), b.result())
 
 
-@pytest.mark.slow
 def test_multislice_pencil_matches_dense():
     g = random_array((32, 16, 32), np.float32, 23)
     p = Problem(dims=(8, 8, 32), stencil="mpi7pt", mesh=(2, 2, 1),
@@ -69,13 +66,12 @@ def test_multislice_describe_and_guards():
     d = p.describe()
     assert d["slices"] == 2
     assert d["eff_mesh"] == [4, 2, 1]
-    assert "slice x ici" in d["exchange_axes"][0]
-    assert "2 DCN slices x 2 ICI" in d["exchange_axes"][0]
-    # the kernel remote-DMA exchange is ICI-only
-    with pytest.raises(ValueError, match="ICI-only"):
-        Problem(dims=(8, 8, 32), stencil="mpi7pt", mesh=(2, 1, 1),
-                slices=2, bdims=(4, 4, 32), backend="pencil",
-                exchange="fused", st_iter=2)
+    assert "node x card" in d["exchange_axes"][0]
+    assert "2 nodes x 2 cards" in d["exchange_axes"][0]
+    # a two-level mesh larger than the device count raises
+    with pytest.raises(ValueError, match="needs 16 devices"):
+        Problem(dims=(8, 8, 32), stencil="mpi7pt", mesh=(2, 2, 2),
+                slices=2, bdims=(4, 4, 8), backend="jnp")
 
 
 def test_multislice_checkpoint_guard(tmp_path):

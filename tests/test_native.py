@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from bricklib_tpu.core.layout import adjacency_from_grid
-from bricklib_tpu.core.native import (
+from brickjax.core.layout import adjacency_from_grid
+from brickjax.core.native import (
     adjacency_from_grid_native,
     check_involution_native,
     load_library,
     zmort_ids_native,
 )
-from bricklib_tpu.utils.zmort import zmort_ids
+from brickjax.utils.zmort import zmort_ids
 
 needs_lib = pytest.mark.skipif(load_library() is None,
                                reason="no native toolchain")
@@ -21,7 +21,7 @@ def _py_adjacency(grid, nbricks):
     dims = grid.ndim
     gp = np.zeros(tuple(s + 2 for s in grid.shape), dtype=np.int32)
     gp[(slice(1, -1),) * dims] = grid
-    from bricklib_tpu.core.layout import adj_offsets
+    from brickjax.core.layout import adj_offsets
     ncols = 3 ** dims
     adj = np.zeros((nbricks, ncols), dtype=np.int32)
     for col in range(ncols):
@@ -79,10 +79,10 @@ def test_native_copy_to_from_bricks_golden():
     """Native copyToBrick/copyFromBrick == the numpy blocked transpose
     (bricksetup.h:103-221), incl. interleaved-field offsets."""
     import numpy as np
-    from bricklib_tpu.core import init_grid
-    from bricklib_tpu.core.native import (copy_from_bricks_f32,
+    from brickjax.core import init_grid
+    from brickjax.core.native import (copy_from_bricks_f32,
                                           copy_to_bricks_f32, load_library)
-    from bricklib_tpu.core.setup import _blocks_from_dense
+    from brickjax.core.setup import _blocks_from_dense
 
     if load_library() is None:
         import pytest

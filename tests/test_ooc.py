@@ -3,12 +3,10 @@
 import numpy as np
 import pytest
 
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.core import compare_arrays, random_array
-from bricklib_tpu.ooc import ooc_sweep
-from bricklib_tpu.stencils import bench_params, stencil_by_name
-
-pytestmark = pytest.mark.slow
+from brickjax.codegen import dense_apply
+from brickjax.core import compare_arrays, random_array
+from brickjax.ooc import ooc_sweep
+from brickjax.stencils import bench_params, stencil_by_name
 
 PARAMS = bench_params()
 

@@ -1,14 +1,6 @@
-"""Fast-tier Pallas smoke: every emitter compiles and runs once.
-
-The full Pallas suites are slow-marked (interpret-mode first-compiles,
-minutes each at realistic shapes), which left the default test tier
-(`pytest -m "not slow"`) exercising only the jnp/layout/exchange paths.
-These smokes run every emitter at the tiniest legal shapes — seconds
-each — so the flagship code paths cannot silently break between slow
-runs (the reference's CI builds every codegen target,
-ref: .github/workflows/cmake.yml).  Numerics still check against the
-dense twin; interpret mode does NOT validate Mosaic DMA alignment (that
-needs the real-TPU smoke, tools/tpu_smoke.py).
+"""Fast-tier sweep smoke: every sweep class runs once at the tiniest
+legal shapes and checks against the dense twin (the reference's CI
+builds every codegen target, ref: .github/workflows/cmake.yml).
 """
 
 import numpy as np
@@ -16,17 +8,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.core import (
+from brickjax.codegen import dense_apply
+from brickjax.core import (
     compare_arrays,
     from_bricks,
     init_grid,
     random_array,
     to_bricks,
 )
-from bricklib_tpu.st import ConstRef, Grid, Index
-from bricklib_tpu.st.loader import load_stencil_module
-from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
+from brickjax.st import ConstRef, Grid, Index
+from brickjax.st.loader import load_stencil_module
+from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
 PARAMS = dict(DEFAULT_PARAMS)
 PARAMS["coeff"] = [0.03 * (c + 1) for c in range(27)]
@@ -63,13 +55,12 @@ def _dense_want(sd, cores, params, iters=1):
 
 @pytest.mark.parametrize("fuse", [1, 2])
 def test_pencil_sweep_smoke(fuse):
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
+    from brickjax.codegen.sweep import pencil_sweep
 
     grid, info, cores, views = _periodic_data(BD, G, 3)
     sd = stencil_by_name("s7pt")[0]
     tgrid_info = grid
-    fn = pallas_pencil_sweep(sd, tgrid_info, BD, info.nbricks, PARAMS,
-                             interpret=True, fuse=fuse)
+    fn = pencil_sweep(sd, tgrid_info, BD, info.nbricks, PARAMS, fuse=fuse)
     out = np.asarray(fn(views[0]))
     want = _dense_want(sd, cores, PARAMS, iters=fuse)
     got = from_bricks(out, grid[1:-1, 1:-1], BD)
@@ -77,7 +68,7 @@ def test_pencil_sweep_smoke(fuse):
 
 
 def test_pencil_multi_input_smoke():
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
+    from brickjax.codegen.sweep import pencil_sweep
 
     a, b, out_g = Grid("a", 3), Grid("b", 3), Grid("out", 3)
     i, j, k = Index(0), Index(1), Index(2)
@@ -88,8 +79,7 @@ def test_pencil_multi_input_smoke():
     sd = load_stencil_module({"STENCIL": [out_g]})[0]
     prm = {"alpha": 0.4, "beta": 0.07}
     grid, info, cores, views = _periodic_data(BD, G, 5, nfields=2)
-    fn = pallas_pencil_sweep(sd, grid, BD, info.nbricks, prm,
-                             interpret=True)
+    fn = pencil_sweep(sd, grid, BD, info.nbricks, prm)
     named = dict(zip(fn.fields, views))
     out = np.asarray(fn(*(named[n] for n in fn.fields)))
     lo, hi = sd.radius()
@@ -102,9 +92,9 @@ def test_pencil_multi_input_smoke():
 
 @pytest.mark.parametrize("fuse", [1, 2])
 def test_pencil_system_smoke(fuse):
-    """Coupled 2-output system in ONE kernel (Jacobi levels; fuse=2
-    iterates both fields in per-output VMEM rings)."""
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
+    """Coupled 2-output system in ONE sweep (Jacobi levels; fuse=2
+    iterates both fields within the window)."""
+    from brickjax.codegen.sweep import pencil_sweep
 
     u, v = Grid("u", 3), Grid("v", 3)
     ou, ov = Grid("ou", 3), Grid("ov", 3)
@@ -119,8 +109,7 @@ def test_pencil_system_smoke(fuse):
     sds = load_stencil_module({"STENCIL": [ou, ov]})
     prm = {"al": 0.3, "be": 0.06, "ga": 0.02}
     grid, info, cores, views = _periodic_data(BD, G, 17, nfields=2)
-    fn = pallas_pencil_sweep(sds, grid, BD, info.nbricks, prm,
-                             interpret=True, fuse=fuse,
+    fn = pencil_sweep(sds, grid, BD, info.nbricks, prm, fuse=fuse,
                              evolve=("u", "v"))
     named = dict(zip(fn.fields, views))
     outs = fn(*(named[n] for n in fn.fields))
@@ -139,9 +128,9 @@ def test_pencil_system_smoke(fuse):
 
 
 def test_pencil_multi_input_fused_smoke():
-    """fuse=2 with a static aux field: the evolving grid iterates in
-    VMEM rings while the aux grid stays on its window at every level."""
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
+    """fuse=2 with a static aux field: the evolving grid iterates
+    while the aux grid stays on its window at every level."""
+    from brickjax.codegen.sweep import pencil_sweep
 
     a, b, out_g = Grid("a", 3), Grid("b", 3), Grid("out", 3)
     i, j, k = Index(0), Index(1), Index(2)
@@ -153,8 +142,7 @@ def test_pencil_multi_input_fused_smoke():
     sd = load_stencil_module({"STENCIL": [out_g]})[0]
     prm = {"alpha": 0.4, "beta": 0.07, "gamma": 0.11}
     grid, info, cores, views = _periodic_data(BD, G, 19, nfields=2)
-    fn = pallas_pencil_sweep(sd, grid, BD, info.nbricks, prm,
-                             interpret=True, fuse=2, evolve="a")
+    fn = pencil_sweep(sd, grid, BD, info.nbricks, prm, fuse=2, evolve="a")
     named = dict(zip(fn.fields, views))
     out = np.asarray(fn(*(named[n] for n in fn.fields)))
     lo, hi = sd.radius()
@@ -169,14 +157,13 @@ def test_pencil_multi_input_fused_smoke():
 
 def test_pencil_generic_cond_smoke():
     """Generic-evaluator branch (cond's If/max predication) numeric
-    check in the fast tier — the one emitter branch the other smokes
-    don't reach (slow-tier covers it at realistic shapes)."""
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_stencil
+    check in the fast tier."""
+    from brickjax.codegen.sweep import pencil_sweep
 
     grid, info, cores, views = _periodic_data(BD, G, 23)
     sd = stencil_by_name("cond")[0]
-    fn = pallas_pencil_stencil(sd, grid, BD, (1, 1), info.nbricks,
-                               PARAMS, interpret=True)
+    fn = pencil_sweep(sd, grid, BD, info.nbricks,
+                               PARAMS)
     out = np.asarray(fn(views[0]))
     want = _dense_want(sd, cores, PARAMS)
     got = from_bricks(out, grid[1:-1, 1:-1], BD)
@@ -184,125 +171,39 @@ def test_pencil_generic_cond_smoke():
 
 
 def test_pencil_radius2_profile_smoke():
-    """Radius-2 i-profile factorization branch (13pt star) numeric
-    check in the fast tier."""
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_stencil
+    """Radius-2 star (13pt) numeric check in the fast tier."""
+    from brickjax.codegen.sweep import pencil_sweep
 
     bd = (4, 4, 16)
     grid, info, cores, views = _periodic_data(bd, G, 29)
     sd = stencil_by_name("mpi13pt")[0]
-    fn = pallas_pencil_stencil(sd, grid, bd, (1, 1), info.nbricks,
-                               PARAMS, interpret=True)
+    fn = pencil_sweep(sd, grid, bd, info.nbricks,
+                               PARAMS)
     out = np.asarray(fn(views[0]))
     want = _dense_want(sd, cores, PARAMS)
     got = from_bricks(out, grid[1:-1, 1:-1], bd)
     assert compare_arrays(got, want, 1e-5)
 
 
-def test_pallas_dense_smoke():
-    from bricklib_tpu.codegen.pallas_backend import pallas_dense_stencil
-
-    sd = stencil_by_name("s7pt")[0]
-    arr = random_array((8, 24, 128), np.float32, 7)
-    fn = pallas_dense_stencil(sd, arr.shape, (2, 8, 48), PARAMS,
-                              tile_elems=(2, 8), interpret=True)
-    out = np.asarray(fn(jnp.asarray(arr)))
-    want = dense_apply(sd, {next(iter(sd.inputs)): arr}, PARAMS, xp=np)
-    got = out[2:-2, 8:-8, 48:-48]
-    lo, _hi = sd.radius()
-    want_c = want[tuple(slice(p - l, p - l + s) for p, l, s in
-                        zip((2, 8, 48), lo, got.shape))]
-    assert compare_arrays(got, want_c, 1e-5)
-
-
-def test_pallas_brick_generic_smoke():
-    from bricklib_tpu.codegen import brick_apply
-    from bricklib_tpu.codegen.pallas_backend import pallas_brick_stencil
-
-    g3 = (3, 3, 3)
-    grid, info = init_grid(g3)
-    arr = random_array(tuple(gg * bb for gg, bb in zip(g3, BD)),
-                       np.float32, 9)
-    view = jnp.asarray(to_bricks(arr, grid, BD).reshape((-1,) + BD))
-    sd = stencil_by_name("s7pt")[0]
-    fn = pallas_brick_stencil(sd, grid, BD, (1, 1, 1), info.nbricks,
-                              PARAMS, tile=(1, 1), interpret=True)
-    out = np.asarray(fn(view))
-    oracle = brick_apply(sd, {next(iter(sd.inputs)): np.asarray(view)},
-                         info.adj, PARAMS, xp=np)
-    inner = grid[1:-1, 1:-1, 1:-1].ravel()
-    assert compare_arrays(out[inner], oracle[inner], 1e-5)
-
-
-def test_fused_exchange_smoke():
-    """All-local fused exchange-in-sweep vs composed [exchange ->
-    sweep], single device (self-copy plan)."""
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from bricklib_tpu.codegen.fused_exchange import (
-        pallas_pencil_sweep_fusedx)
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
-    from bricklib_tpu.comm import BrickDecomp, skin3d_good
-    from bricklib_tpu.comm.exchange import (
-        exchange_shift, put_plan, put_send_ids)
-    from bricklib_tpu.comm.mesh import make_flat_mesh, shard_map
-
-    mesh_shape = (1, 1, 1)
-    bd = (2, 2, 16)
-    dec = BrickDecomp(dims=(8, 8, 16), ghost_depth=(2, 2, 0),
-                      bdims=bd).initialize(skin3d_good)
-    kgrid = dec.periodic_grid((2,))
-    GK, GJ = kgrid.shape[0], kgrid.shape[1]
-    sd = stencil_by_name("mpi7pt")[0]
-    plan = put_plan(dec, mesh_shape, (2,))
-    fus = pallas_pencil_sweep_fusedx(sd, kgrid, bd, dec.nbricks, plan,
-                                     mesh_shape, DEFAULT_PARAMS,
-                                     interpret=True)
-    ref = pallas_pencil_sweep(sd, kgrid, bd, dec.nbricks, DEFAULT_PARAMS,
-                              interpret=True)
-
-    dat = random_array((dec.nbricks,) + bd, np.float32, 11)
-    m1 = make_flat_mesh(mesh_shape)
-
-    def fstep(d):
-        out, _d2 = fus(d, put_send_ids(plan, mesh_shape, "dev"))
-        return out
-
-    got = np.asarray(jax.jit(shard_map(
-        fstep, m1, P("dev"), P("dev")))(jnp.asarray(dat)))
-
-    def cstep(d):
-        d = exchange_shift(d, dec, ("x", "y", "z"), mesh_shape,
-                           table_axes=(2,))
-        return ref(d)
-
-    want = np.asarray(jax.jit(cstep)(jnp.asarray(dat)))
-    wids = np.unique(np.asarray(kgrid)[1:-1, 1:-1])
-    np.testing.assert_array_equal(got[wids], want[wids])
-
-
-@pytest.mark.parametrize("la", [1, 2])
-def test_pencil_4d_smoke(la):
-    from bricklib_tpu.codegen.pencil_kernel_4d import pallas_pencil_sweep_4d
+@pytest.mark.parametrize("fuse", [1, 2])
+def test_pencil_4d_smoke(fuse):
+    from brickjax.codegen.sweep import pencil_sweep
 
     bd4, g4 = (2, 2, 2, 8), (3, 4, 3, 1)
     grid, info, cores, views = _periodic_data(bd4, g4, 13)
     sd = stencil_by_name("mpi9pt")[0]
-    fn = pallas_pencil_sweep_4d(sd, grid, bd4, info.nbricks,
-                                DEFAULT_PARAMS, interpret=True,
-                                lookahead=la)
+    fn = pencil_sweep(sd, grid, bd4, info.nbricks, DEFAULT_PARAMS,
+                      fuse=fuse)
     out = np.asarray(fn(views[0]))
-    want = _dense_want(sd, cores, DEFAULT_PARAMS)
+    want = _dense_want(sd, cores, DEFAULT_PARAMS, iters=fuse)
     got = from_bricks(out, grid[1:-1, 1:-1, 1:-1], bd4)
     assert compare_arrays(got, want, 1e-5)
 
 
 def test_pencil_4d_multi_input_smoke():
-    """4-D variable-coefficient stencil: per-field rolling windows,
-    each with its own thin w-halo slices (cross-field w/k/j offsets
-    exercise both halo directions)."""
-    from bricklib_tpu.codegen.pencil_kernel_4d import pallas_pencil_sweep_4d
+    """4-D variable-coefficient stencil: one window per field
+    (cross-field w/k/j offsets exercise both halo directions)."""
+    from brickjax.codegen.sweep import pencil_sweep
 
     a, g_, out_g = Grid("a", 4), Grid("g", 4), Grid("out", 4)
     i, j, k, w = Index(0), Index(1), Index(2), Index(3)
@@ -314,8 +215,7 @@ def test_pencil_4d_multi_input_smoke():
     prm = {"beta": 0.11}
     bd4, g4 = (2, 2, 2, 8), (3, 4, 3, 1)
     grid, info, cores, views = _periodic_data(bd4, g4, 29, nfields=2)
-    fn = pallas_pencil_sweep_4d(sd, grid, bd4, info.nbricks, prm,
-                                interpret=True)
+    fn = pencil_sweep(sd, grid, bd4, info.nbricks, prm)
     named = dict(zip(fn.fields, views))
     out = np.asarray(fn(*(named[n] for n in fn.fields)))
     lo, hi = sd.radius()

@@ -1,4 +1,4 @@
-"""2-D streaming pencil kernel vs dense periodic twin (interpret).
+"""2-D pencil sweep vs dense periodic twin.
 
 Dimension generality for the fast path (the reference's templates are
 dim-generic, ref: include/brick.h:96-127).
@@ -9,17 +9,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.codegen.pencil_kernel_2d import pallas_pencil_sweep_2d
-from bricklib_tpu.core import (
+from brickjax.codegen import dense_apply
+from brickjax.codegen.sweep import pencil_sweep
+from brickjax.core import (
     compare_arrays,
     from_bricks,
     init_grid,
     random_array,
     to_bricks,
 )
-from bricklib_tpu.st import ConstRef, Func, Grid, Index, If
-from bricklib_tpu.st.loader import load_stencil_module
+from brickjax.st import ConstRef, Func, Grid, Index, If
+from brickjax.st.loader import load_stencil_module
 
 
 def _lin5():
@@ -56,8 +56,8 @@ def _run_case(sd, params, by=4, X=16, ny=12, seed=7, steps=1):
     core = random_array((ny, X), np.float32, seed)
     ext = np.pad(core, ((by, by), (0, 0)), mode="wrap")
     view = jnp.asarray(to_bricks(ext, grid, (by, X)).reshape(-1, by, X))
-    fn = pallas_pencil_sweep_2d(sd, grid, (by, X), info.nbricks,
-                                params, interpret=True)
+    fn = pencil_sweep(sd, grid, (by, X), info.nbricks,
+                                params)
     out = view
     want = core
     lo, hi = sd.radius()
@@ -102,8 +102,7 @@ def test_2d_periodic_table_chained():
     core = random_array((ny, X), np.float32, 3)
     ext = np.pad(core, ((by, by), (0, 0)), mode="wrap")
     view = jnp.asarray(to_bricks(ext, grid, (by, X)).reshape(-1, by, X))
-    fn = pallas_pencil_sweep_2d(sd, g2, (by, X), info.nbricks, params,
-                                interpret=True)
+    fn = pencil_sweep(sd, g2, (by, X), info.nbricks, params)
     out = np.asarray(fn(fn(view)))
     lo, hi = sd.radius()
     want = core
@@ -131,7 +130,7 @@ def _dense_steps(sd, g, n, params):
 def test_problem_2d_pencil_single_device():
     """Problem on a 2-D domain picks the 2-D pencil fast path (table
     periodicity on both axes) and matches the dense periodic twin."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _lin5()
     params = {"a": 0.4, "b": 0.15}
@@ -148,7 +147,7 @@ def test_problem_2d_pencil_single_device():
 def test_problem_2d_distributed_deep_ghost():
     """2-D pencil Problem on a (2, 1) mesh with st_iter=2 deep ghost
     (ghost-inclusive first sweep, owned-only last)."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _asym9()
     g = random_array((32, 16), np.float32, 22)
@@ -162,7 +161,7 @@ def test_problem_2d_distributed_deep_ghost():
 def test_problem_2d_nonlinear_generic():
     """Nonlinear 2-D stencils run the generic evaluator on the 2-D
     pencil path (If/max, single input)."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _nonlin()
     g = random_array((16, 16), np.float32, 23)
@@ -177,7 +176,7 @@ def test_problem_2d_multi_input_pencil():
     """Variable-coefficient 2-D stencils run the pencil generic path
     with one window ring per input field (aux periodic at init),
     matching the dense twin over two steps; mesh rank is validated."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     i, j = Index(0), Index(1)
     g, c, o = Grid("in", 2), Grid("c", 2), Grid("out", 2)
@@ -205,7 +204,7 @@ def test_problem_2d_differentiable_step():
     row-pencil emitter, single device (table periodic both axes)."""
     import jax
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _lin5()
     params = {"a": 0.4, "b": 0.15}
@@ -237,7 +236,7 @@ def test_problem_2d_differentiable_step_distributed():
     globally."""
     import jax
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _lin5()
     params = {"a": 0.4, "b": 0.15}
@@ -277,8 +276,8 @@ def test_problem_2d_differentiable_piecewise_exact():
     matches dense AD."""
     import jax
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import from_bricks
+    from brickjax.api import Problem
+    from brickjax.core import from_bricks
 
     sd = _nonlin()
     N = 16
@@ -312,7 +311,7 @@ def test_problem_2d_differentiable_piecewise_exact():
 
 def test_problem_2d_rollout_matches_step():
     """rollout(n) (one fused dispatch) equals step(n) on the 2-D path."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _lin5()
     params = {"a": 0.4, "b": 0.15}
@@ -336,11 +335,10 @@ def test_2d_bf16_storage():
     core = random_array((ny, X), np.float32, 13)
     ext = np.pad(core, ((by, by), (0, 0)), mode="wrap")
     view = to_bricks(ext, grid, (by, X)).reshape(-1, by, X)
-    f32 = pallas_pencil_sweep_2d(sd, grid, (by, X), info.nbricks,
-                                 params, interpret=True)
-    b16 = pallas_pencil_sweep_2d(sd, grid, (by, X), info.nbricks,
-                                 params, dtype=jnp.bfloat16,
-                                 interpret=True)
+    f32 = pencil_sweep(sd, grid, (by, X), info.nbricks,
+                                 params)
+    b16 = pencil_sweep(sd, grid, (by, X), info.nbricks,
+                                 params, dtype=jnp.bfloat16)
     want = np.asarray(f32(jnp.asarray(view)))
     got = np.asarray(b16(jnp.asarray(view, jnp.bfloat16)),
                      dtype=np.float32)
@@ -351,7 +349,7 @@ def test_2d_bf16_storage():
 def test_problem_2d_multi_input_distributed():
     """Var-coeff 2-D on a (2, 1) mesh: evolving field exchanged per
     step, aux ghost filled once at init (periodic, never stale)."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     i, j = Index(0), Index(1)
     g, c, o = Grid("in", 2), Grid("c", 2), Grid("out", 2)
@@ -385,7 +383,7 @@ def _poly2d_grads(mesh):
     match dense AD globally."""
     import jax
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _varcoeff_2d()
     dims = (16, 16)
@@ -450,7 +448,7 @@ def _system_2d():
 def test_problem_2d_system(mesh=(1, 1)):
     """Coupled 2-D SYSTEM runs as one multi-output kernel on the 2-D
     pencil path (Jacobi update) and matches the dense twin."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sds = _system_2d()
     gshape = tuple(m * d for m, d in zip(mesh, (16, 16)))
@@ -484,7 +482,7 @@ def _system2d_grads(mesh):
     grads wrt both fields match dense AD globally."""
     import jax
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sds = _system_2d()
     dims = (16, 16)
@@ -550,10 +548,10 @@ def test_2d_fused_equals_composed(F):
     view = jnp.asarray(to_bricks(ext, grid, (by, X)).reshape(-1, by, X))
     for sd, params in ((_lin5(), {"a": 0.4, "b": 0.15}),
                        (_nonlin(), {})):
-        one = pallas_pencil_sweep_2d(sd, t1, (by, X), info.nbricks,
-                                     params, interpret=True)
-        fused = pallas_pencil_sweep_2d(sd, t1, (by, X), info.nbricks,
-                                       params, fuse=F, interpret=True)
+        one = pencil_sweep(sd, t1, (by, X), info.nbricks,
+                                     params)
+        fused = pencil_sweep(sd, t1, (by, X), info.nbricks,
+                                       params, fuse=F)
         want = view
         for _ in range(F):
             want = one(want)
@@ -566,28 +564,29 @@ def test_2d_fused_equals_composed(F):
 
 def test_2d_fuse_guards():
     with pytest.raises(ValueError, match="fuse"):
-        pallas_pencil_sweep_2d(_asym9(), np.arange(6), (4, 16), 6, {},
-                               fuse=4, interpret=True)
+        pencil_sweep(_asym9(), np.arange(6), (4, 16), 6, {},
+                               fuse=4)
 
 
 def test_problem_2d_auto_fuse():
-    """2-D Problem auto-fuses DMA-bound stencils: st_iter=4 runs as
-    one F=4 trapezoid sweep and equals 4 dense steps (distributed
-    deep-ghost included)."""
-    from bricklib_tpu.api import Problem
+    """2-D Problem with schedule fuse=4: st_iter=4 runs as one F=4
+    window sweep and equals 4 dense steps (distributed deep-ghost
+    included)."""
+    from brickjax.api import Problem
 
     sd = _lin5()
     params = {"a": 0.4, "b": 0.15}
     g = random_array((32, 16), np.float32, 91)
     p = Problem(dims=(16, 16), stencil=sd, params=params,
-                bdims=(8, 16), mesh=(2, 1), st_iter=4)
+                bdims=(8, 16), mesh=(2, 1), st_iter=4,
+                schedule=dict(fuse=4))
     assert p.fuse == 4, p.describe()
     p.init(array=g).step(1)
     assert compare_arrays(p.result(), _dense_steps(sd, g, 4, p.params),
                           1e-5)
     # single-device table-periodic too
     q = Problem(dims=(16, 16), stencil=sd, params=params,
-                bdims=(8, 16), st_iter=4)
+                bdims=(8, 16), st_iter=4, schedule=dict(fuse=4))
     assert q.fuse == 4
     q.init(array=g[:16]).step(1)
     assert compare_arrays(q.result(),
@@ -599,14 +598,14 @@ def test_problem_2d_fused_differentiable_step():
     trapezoid — gradients match dense AD through 4 composed steps."""
     import jax
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _lin5()
     params = {"a": 0.4, "b": 0.15}
     x = random_array((16, 16), np.float32, 95)
     w = random_array((16, 16), np.float32, 96)
     p = Problem(dims=(16, 16), stencil=sd, params=params,
-                bdims=(8, 16), st_iter=4)
+                bdims=(8, 16), st_iter=4, schedule=dict(fuse=4))
     assert p.fuse == 4
     step = p.differentiable_step()
     p.init(array=x)
@@ -629,11 +628,10 @@ def test_problem_2d_fused_differentiable_step():
 
 
 def test_2d_tall_brick_by32_fused():
-    """BY=32 (the measured round-5 bench winner: taller bricks cut
-    per-row grid overhead and trapezoid recompute) stays numerically
-    exact fused: F=4 equals 4 composed sweeps, and the default 2-D
-    Problem bdims pick BY=32 for large divisible domains."""
-    from bricklib_tpu.api import Problem
+    """Tall BY=32 bricks stay numerically exact fused: F=4 equals 4
+    composed sweeps, and the default 2-D Problem bdims are 8 rows of
+    the whole width."""
+    from brickjax.api import Problem
 
     by, X, ny = 32, 128, 64
     grid, info = init_grid((ny // by + 2, 1))
@@ -643,10 +641,10 @@ def test_2d_tall_brick_by32_fused():
     ext = np.pad(core, ((by, by), (0, 0)), mode="wrap")
     view = jnp.asarray(to_bricks(ext, grid, (by, X)).reshape(-1, by, X))
     sd, params = _lin5(), {"a": 0.4, "b": 0.15}
-    one = pallas_pencil_sweep_2d(sd, t1, (by, X), info.nbricks,
-                                 params, interpret=True)
-    fused = pallas_pencil_sweep_2d(sd, t1, (by, X), info.nbricks,
-                                   params, fuse=4, interpret=True)
+    one = pencil_sweep(sd, t1, (by, X), info.nbricks,
+                                 params)
+    fused = pencil_sweep(sd, t1, (by, X), info.nbricks,
+                                   params, fuse=4)
     want = view
     for _ in range(4):
         want = one(want)
@@ -656,6 +654,6 @@ def test_2d_tall_brick_by32_fused():
                                np.asarray(want)[g2], rtol=0, atol=1e-6)
     # default-bdims heuristic
     assert Problem(dims=(128, 128), stencil=sd, params=params,
-                   backend="pencil").bdims == (32, 128)
+                   backend="pencil").bdims == (8, 128)
     assert Problem(dims=(48, 128), stencil=sd, params=params,
                    backend="pencil").bdims == (8, 128)

@@ -6,13 +6,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.codegen.pencil_kernel_4d import pallas_pencil_sweep_4d
-from bricklib_tpu.core import (compare_arrays, from_bricks, init_grid,
+from brickjax.codegen import dense_apply
+from brickjax.codegen.sweep import pencil_sweep
+from brickjax.core import (compare_arrays, from_bricks, init_grid,
                                random_array, to_bricks)
-from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
-
-pytestmark = pytest.mark.slow
+from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
 BD = (2, 2, 4, 16)
 G = (4, 5, 4, 1)
@@ -27,8 +25,8 @@ def test_pencil_4d_matches_dense_periodic():
                         (0, 0)), mode="wrap")
     view = jnp.asarray(to_bricks(ext, grid, BD).reshape((-1,) + BD))
     sd = stencil_by_name("mpi9pt")[0]
-    fn = pallas_pencil_sweep_4d(sd, grid, BD, info.nbricks,
-                                DEFAULT_PARAMS, interpret=True)
+    fn = pencil_sweep(sd, grid, BD, info.nbricks,
+                                DEFAULT_PARAMS)
     out = np.asarray(fn(view))
     lo, hi = sd.radius()
     corep = np.pad(core, [(l, h) for l, h in zip(lo, hi)], mode="wrap")
@@ -51,8 +49,8 @@ def test_pencil_4d_fused_matches_composed(F):
                         (0, 0)), mode="wrap")
     view = jnp.asarray(to_bricks(ext, grid, BD).reshape((-1,) + BD))
     sd = stencil_by_name("mpi9pt")[0]
-    fn = pallas_pencil_sweep_4d(sd, grid, BD, info.nbricks,
-                                DEFAULT_PARAMS, interpret=True, fuse=F)
+    fn = pencil_sweep(sd, grid, BD, info.nbricks,
+                                DEFAULT_PARAMS, fuse=F)
     out = np.asarray(fn(view))
     want = _dense_steps_4d(sd, core, F, DEFAULT_PARAMS)
     got = from_bricks(out, grid[1:-1, 1:-1, 1:-1], BD)
@@ -62,8 +60,8 @@ def test_pencil_4d_fused_matches_composed(F):
 def test_pencil_4d_fused_mixed_radii():
     """fuse=2 with asymmetric radii (w=1, k=2, j=2, i=1): exercises
     multi-element k/j halos flowing through the fused ring levels."""
-    from bricklib_tpu.st import FloatLiteral, Grid, Index
-    from bricklib_tpu.st.loader import load_stencil_module
+    from brickjax.st import FloatLiteral, Grid, Index
+    from brickjax.st.loader import load_stencil_module
 
     inp, out = Grid("in", 4), Grid("out", 4)
     i, j, k, w = Index(0), Index(1), Index(2), Index(3)
@@ -81,8 +79,7 @@ def test_pencil_4d_fused_mixed_radii():
                         + (bd[3],), np.float32, 31)
     ext = np.pad(core, [(b, b) for b in bd[:3]] + [(0, 0)], mode="wrap")
     view = jnp.asarray(to_bricks(ext, grid, bd).reshape((-1,) + bd))
-    fn = pallas_pencil_sweep_4d(sd, grid, bd, info.nbricks, {},
-                                interpret=True, fuse=2)
+    fn = pencil_sweep(sd, grid, bd, info.nbricks, {}, fuse=2)
     out_v = np.asarray(fn(view))
     want = _dense_steps_4d(sd, core, 2, {})
     got = from_bricks(out_v, grid[1:-1, 1:-1, 1:-1], bd)
@@ -92,7 +89,7 @@ def test_pencil_4d_fused_mixed_radii():
 def test_weak_driver_4d_pencil_distributed():
     """4-D pencil on a (2,1,1,1) mesh with deep-ghost ST_ITER=2,
     validated against the array twin inside the driver."""
-    from bricklib_tpu.drivers import weak
+    from brickjax.drivers import weak
 
     weak.run(dims=(4, 4, 8, 16), bdim=(2, 2, 4, 16), stencil="mpi9pt",
              st_iter=2, mesh_shape=(2, 1, 1, 1), iters=1, validate=True,
@@ -102,7 +99,7 @@ def test_weak_driver_4d_pencil_distributed():
 def test_weak_driver_4d_fused_deep_ghost():
     """4-D st_iter=4 as two fused F=2 sweeps on a (2,1,1,1) mesh,
     validated against the array twin inside the driver."""
-    from bricklib_tpu.drivers import weak
+    from brickjax.drivers import weak
 
     weak.run(dims=(8, 8, 8, 16), bdim=(4, 4, 4, 16), stencil="mpi9pt",
              st_iter=4, mesh_shape=(2, 1, 1, 1), iters=1, validate=True,
@@ -121,7 +118,7 @@ def _dense_steps_4d(sd, g, n, params):
 def test_problem_4d_pencil():
     """Problem API on a 4-D domain picks the 4-D pencil kernel
     (single device: all-axes table periodicity)."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     g = random_array((4, 8, 8, 32), np.float32, 11)
     p = Problem(dims=(4, 8, 8, 32), stencil="mpi9pt",
@@ -136,7 +133,7 @@ def test_problem_4d_pencil():
 def test_problem_4d_pencil_distributed_deep_ghost():
     """4-D pencil Problem on a (2,1,1,1) mesh with st_iter=2 deep
     ghost (ghost-inclusive first sweep, owned-only last)."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     g = random_array((8, 8, 8, 32), np.float32, 12)
     p = Problem(dims=(4, 8, 8, 32), stencil="mpi9pt",
@@ -148,26 +145,23 @@ def test_problem_4d_pencil_distributed_deep_ghost():
 
 
 def test_problem_4d_auto_fused():
-    """4-D auto-fuse: mpi9pt (16 passes, DMA-bound) caps at F=2 — the
-    w grid-dim recompute amplification makes F=4 unprofitable and its
-    compile hangs at scale (tools/bench_4d.py).  One step still equals
-    four dense iterations (two fused F=2 sweeps)."""
-    from bricklib_tpu.api import Problem
+    """4-D fused: mpi9pt st_iter=4 as two F=2 window sweeps equals
+    four dense iterations."""
+    from brickjax.api import Problem
 
     g = random_array((8, 8, 8, 32), np.float32, 17)
     p = Problem(dims=(8, 8, 8, 32), stencil="mpi9pt",
                 bdims=(4, 4, 4, 32), backend="pencil",
-                mesh=(1, 1, 1, 1), st_iter=4)
+                mesh=(1, 1, 1, 1), st_iter=4, schedule=dict(fuse=2))
     assert p.fuse == 2
     p.init(array=g).step(1)
     want = _dense_steps_4d(stencil_by_name("mpi9pt")[0], g, 4, p.params)
     assert compare_arrays(p.result(), want, 1e-4)
 
 
-@pytest.mark.slow
 def test_problem_4d_rollout_matches_step():
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import random_array
+    from brickjax.api import Problem
+    from brickjax.core import random_array
 
     g = random_array((4, 8, 8, 32), np.float32, 5)
     kw = dict(dims=(4, 8, 8, 32), stencil="mpi9pt",
@@ -179,14 +173,13 @@ def test_problem_4d_rollout_matches_step():
     np.testing.assert_allclose(p.result(), q.result(), rtol=0, atol=0)
 
 
-@pytest.mark.slow
 def test_problem_4d_differentiable_step():
     """4-D Problem AD hook: grad through the 4-D pencil kernel (auto-
     fused mpi9pt, st_iter chaining) vs the dense twin."""
     import jax
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import random_array
+    from brickjax.api import Problem
+    from brickjax.core import random_array
 
     dims = (4, 8, 8, 32)
     p = Problem(dims=dims, stencil="mpi9pt", bdims=(2, 4, 4, 32),
@@ -226,8 +219,8 @@ def test_problem_4d_differentiable_step():
 def _varcoeff_4d():
     """out = a*g + 0.11*g(i+1,k-1) + a(j-1,w-1)*g(j+1,w+1): variable
     coefficients with cross-field offsets in every outer axis."""
-    from bricklib_tpu.st import FloatLiteral, Grid, Index
-    from bricklib_tpu.st.loader import load_stencil_module
+    from brickjax.st import FloatLiteral, Grid, Index
+    from brickjax.st.loader import load_stencil_module
 
     g_, a, out = Grid("g", 4), Grid("a", 4), Grid("out", 4)
     i, j, k, w = Index(0), Index(1), Index(2), Index(3)
@@ -241,7 +234,7 @@ def _varcoeff_4d():
 def test_problem_4d_aux_field_pencil():
     """4-D variable-coefficient Problem runs on the pencil backend
     (per-field rolling windows with their own w-halo slices)."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _varcoeff_4d()
     dims = (4, 8, 8, 32)
@@ -259,14 +252,13 @@ def test_problem_4d_aux_field_pencil():
     assert compare_arrays(p.result(), want, 1e-5)
 
 
-@pytest.mark.slow
 def test_problem_4d_poly_differentiable_step():
     """Exact 4-D polynomial pullback through the Problem hook: grads
     wrt the evolving field AND the aux coefficient field match dense
     AD (single device, all-axes table periodicity)."""
     import jax
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _varcoeff_4d()
     dims = (4, 8, 8, 32)
@@ -308,7 +300,6 @@ def test_problem_4d_poly_differentiable_step():
                                    atol=2e-5)
 
 
-@pytest.mark.slow
 def test_problem_4d_poly_differentiable_step_distributed():
     """Distributed 4-D poly pullback on a (2,1,1,1) mesh: the evolving
     field's ghost cotangent AND the aux coefficient field's ghost
@@ -316,7 +307,7 @@ def test_problem_4d_poly_differentiable_step_distributed():
     AD globally."""
     import jax
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sd = _varcoeff_4d()
     mesh, dims = (2, 1, 1, 1), (4, 8, 8, 32)
@@ -369,8 +360,8 @@ def _system_4d():
     """Coupled polynomial 4-D pair: u' reads u taps and the u*v
     product; v' reads v taps and the same product (cross-coupling in
     every outer axis)."""
-    from bricklib_tpu.st import Grid, Index
-    from bricklib_tpu.st.loader import load_stencil_module
+    from brickjax.st import Grid, Index
+    from brickjax.st.loader import load_stencil_module
 
     u, v = Grid("u", 4), Grid("v", 4)
     ou, ov = Grid("ou", 4), Grid("ov", 4)
@@ -398,7 +389,7 @@ def _dense_system_step_4d(sds, state, params):
 def test_problem_4d_system_pencil():
     """Coupled 4-D system on the pencil backend: one multi-input
     kernel per output, Jacobi update from the pre-step fields."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sds = _system_4d()
     dims = (4, 8, 8, 32)
@@ -414,14 +405,13 @@ def test_problem_4d_system_pencil():
         assert compare_arrays(res[f], want[f], 1e-5), f
 
 
-@pytest.mark.slow
 def test_problem_4d_system_differentiable_step_distributed():
     """Exact 4-D coupled-system pullback on a (2,1,1,1) mesh: both
     fields' ghost cotangents ride the exchanges' transposes home;
     grads wrt both fields match dense AD globally."""
     import jax
 
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     sds = _system_4d()
     mesh, dims = (2, 1, 1, 1), (4, 8, 8, 32)
@@ -466,15 +456,14 @@ def test_problem_4d_system_differentiable_step_distributed():
                 rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.slow
 def test_problem_4d_differentiable_step_distributed():
     """Distributed 4-D pullback on a (2, 1, 1, 1) mesh: the w ghost
     cotangent rides the shift exchange's transpose home; grads match
     dense AD globally (the 3-D exchanged-axes design at rank 4)."""
     import jax
 
-    from bricklib_tpu.api import Problem
-    from bricklib_tpu.core import random_array
+    from brickjax.api import Problem
+    from brickjax.core import random_array
 
     mesh, dims = (2, 1, 1, 1), (4, 8, 8, 32)
     gshape = tuple(m * d for m, d in zip(mesh, dims))

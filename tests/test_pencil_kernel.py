@@ -1,16 +1,14 @@
-"""Pencil-brick streaming kernel vs dense periodic twin (interpret)."""
+"""Pencil-brick sweep vs dense periodic twin."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from bricklib_tpu.codegen import dense_apply
-from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_stencil
-from bricklib_tpu.core import compare_arrays, from_bricks, init_grid, random_array, to_bricks
-from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
-
-pytestmark = pytest.mark.slow
+from brickjax.codegen import dense_apply
+from brickjax.codegen.sweep import pencil_sweep
+from brickjax.core import compare_arrays, from_bricks, init_grid, random_array, to_bricks
+from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
 PARAMS = dict(DEFAULT_PARAMS)
 PARAMS["coeff"] = [0.03 * (c + 1) for c in range(27)]
@@ -34,8 +32,8 @@ def data():
 def test_pencil_matches_dense_periodic(data, name, tj):
     grid, info, core, view = data
     sd = stencil_by_name(name)[0]
-    fn = pallas_pencil_stencil(sd, grid, BD, (1, 1), info.nbricks,
-                               PARAMS, tile_j=tj, interpret=True)
+    fn = pencil_sweep(sd, grid, BD, info.nbricks,
+                               PARAMS)
     out = np.asarray(fn(view))
     lo, hi = sd.radius()
     corep = np.pad(core, [(l, h) for l, h in zip(lo, hi)], mode="wrap")
@@ -59,8 +57,8 @@ def test_pencil_corpus_matches_dense(name, bd):
                  mode="wrap")
     view = jnp.asarray(to_bricks(ext, grid, bd).reshape((-1,) + bd))
     sd = stencil_by_name(name)[0]
-    fn = pallas_pencil_stencil(sd, grid, bd, (1, 1), info.nbricks,
-                               PARAMS, interpret=True)
+    fn = pencil_sweep(sd, grid, bd, info.nbricks,
+                               PARAMS)
     out = np.asarray(fn(view))
     lo, hi = sd.radius()
     corep = np.pad(core, [(l, h) for l, h in zip(lo, hi)], mode="wrap")
@@ -73,17 +71,15 @@ def test_deep_ghost_st_iter_composition(data):
     """Ghost-inclusive sweep (skip=0) then owned sweep (skip=1) — two
     iterations per exchange; contamination from clamped edge windows
     must stay inside the ghost ring (ref: weak/main.cpp:203-212)."""
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
+    from brickjax.codegen.sweep import pencil_sweep
 
     grid, info, core, view = data
     sd = stencil_by_name("s7pt")[0]
     GK, GJ = grid.shape[0], grid.shape[1]
-    fn0 = pallas_pencil_sweep(sd, grid, BD, info.nbricks, PARAMS,
-                              k_range=(0, GK), j_range=(0, GJ),
-                              interpret=True)
-    fn1 = pallas_pencil_sweep(sd, grid, BD, info.nbricks, PARAMS,
-                              k_range=(1, GK - 1), j_range=(1, GJ - 1),
-                              interpret=True)
+    fn0 = pencil_sweep(sd, grid, BD, info.nbricks, PARAMS,
+                              k_range=(0, GK), j_range=(0, GJ))
+    fn1 = pencil_sweep(sd, grid, BD, info.nbricks, PARAMS,
+                              k_range=(1, GK - 1), j_range=(1, GJ - 1))
     out = np.asarray(fn1(fn0(view)))
 
     gname = next(iter(sd.inputs))
@@ -105,7 +101,7 @@ def test_deep_ghost_i_bricked_composition():
     (0, GI): out-of-table i neighbors clamp to duplicated edge bricks in
     the assembled window) then an owned sweep — deep-ghost ST_ITER for
     distributed-i layouts (ref: weak/main.cpp:203-212)."""
-    from bricklib_tpu.codegen.pallas_backend import pallas_brick_stencil
+    from brickjax.codegen.sweep import pencil_sweep
 
     bd = (2, 4, 16)
     G3 = (4, 4, 4)
@@ -114,11 +110,9 @@ def test_deep_ghost_i_bricked_composition():
     ext = np.pad(core, [(b, b) for b in bd], mode="wrap")
     view = jnp.asarray(to_bricks(ext, grid, bd).reshape((-1,) + bd))
     sd = stencil_by_name("s7pt")[0]
-    fn0 = pallas_brick_stencil(sd, grid, bd, (1, 1, 1), info.nbricks,
-                               PARAMS, k_range=(0, 4), j_range=(0, 4),
-                               i_range=(0, 4), interpret=True)
-    fn1 = pallas_brick_stencil(sd, grid, bd, (1, 1, 1), info.nbricks,
-                               PARAMS, interpret=True)
+    fn0 = pencil_sweep(sd, grid, bd, info.nbricks, PARAMS, i_ghost=1, k_range=(0, 4), j_range=(0, 4),
+                               i_range=(0, 4))
+    fn1 = pencil_sweep(sd, grid, bd, info.nbricks, PARAMS, i_ghost=1)
     out = np.asarray(fn1(fn0(view)))
 
     gname = next(iter(sd.inputs))
@@ -135,7 +129,7 @@ def test_deep_ghost_i_bricked_composition():
 def test_weak_driver_distributed_pencil_st_iter():
     """Deep-ghost pencil on a real (2,1,1) mesh with ST_ITER=2,
     validated against the array twin inside the driver."""
-    from bricklib_tpu.drivers import weak
+    from brickjax.drivers import weak
 
     weak.run(dims=(16, 16, 32), bdim=(8, 8, 8), stencil="mpi7pt",
              st_iter=2, mesh_shape=(2, 1, 1), iters=1, validate=True,
@@ -146,7 +140,7 @@ def test_weak_driver_overlap_pencil():
     """Interior/ring split (sep_pos interior-first, brick-mpi.h:196):
     inner sweep from pre-exchange data + in-place ring sweeps after the
     exchange must equal the monolithic step."""
-    from bricklib_tpu.drivers import weak
+    from brickjax.drivers import weak
 
     weak.run(dims=(32, 32, 32), bdim=(8, 8, 8), stencil="mpi7pt",
              st_iter=1, mesh_shape=(2, 2, 1), iters=1, validate=True,
@@ -161,8 +155,8 @@ def test_weak_driver_overlap_pencil():
 def test_fused_sweep_matches_dense(name, F):
     """Temporal fusion: F iterations per HBM pass == F dense iterations
     on the periodic table (exact), any radius with F*r <= BJ."""
-    from bricklib_tpu.comm import BrickDecomp, skin3d_good
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
+    from brickjax.comm import BrickDecomp, skin3d_good
+    from brickjax.codegen.sweep import pencil_sweep
 
     BDf = (8, 8, 32)
     dec = BrickDecomp(dims=(32, 32, 32), ghost_depth=(8, 8, 0),
@@ -175,9 +169,8 @@ def test_fused_sweep_matches_dense(name, F):
     sd = stencil_by_name(name)[0]
     gname = next(iter(sd.inputs))
     lo, hi = sd.radius()
-    fn = pallas_pencil_sweep(sd, dec.periodic_grid((0, 1, 2)), BDf,
-                             dec.nbricks, PARAMS, fuse=F,
-                             interpret=True)
+    fn = pencil_sweep(sd, dec.periodic_grid((0, 1, 2)), BDf,
+                             dec.nbricks, PARAMS, fuse=F)
     out = np.asarray(fn(view))
     b = core
     for _ in range(F):
@@ -189,7 +182,7 @@ def test_fused_sweep_matches_dense(name, F):
 
 def test_weak_driver_fused_deep_ghost():
     """st_iter=4 as two fused F=2 sweeps on a (2,1,1) mesh."""
-    from bricklib_tpu.drivers import weak
+    from brickjax.drivers import weak
 
     weak.run(dims=(32, 16, 32), bdim=(8, 8, 8), stencil="mpi7pt",
              st_iter=4, mesh_shape=(2, 1, 1), iters=1, validate=True,
@@ -200,22 +193,21 @@ def test_fuse_k_radius_guard():
     """fuse x k-radius must fit the brick row depth: clamped-edge
     contamination grows radius elements per fused level (review
     finding: F=4, r=1, BK=2 silently corrupted owned rows)."""
-    from bricklib_tpu.comm import BrickDecomp, skin3d_good
-    from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
+    from brickjax.comm import BrickDecomp, skin3d_good
+    from brickjax.codegen.sweep import pencil_sweep
 
     dec = BrickDecomp(dims=(8, 32, 32), ghost_depth=(2, 8, 0),
                       bdims=(2, 8, 32)).initialize(skin3d_good)
     sd = stencil_by_name("s7pt")[0]
     with pytest.raises(ValueError, match="k-radius"):
-        pallas_pencil_sweep(sd, dec.periodic_grid((0, 1, 2)),
-                            (2, 8, 32), dec.nbricks, PARAMS, fuse=4,
-                            interpret=True)
+        pencil_sweep(sd, dec.periodic_grid((0, 1, 2)),
+                            (2, 8, 32), dec.nbricks, PARAMS, fuse=4)
 
 
 def test_problem_single_device_deep_ghost_bound():
     """The jnp path's ghost is finite on every device count; st_iter
     beyond the validity bound must raise even at mesh=(1,1,1)."""
-    from bricklib_tpu.api import Problem
+    from brickjax.api import Problem
 
     with pytest.raises(ValueError, match="ghost depth"):
         Problem(dims=(8, 8, 16), stencil="mpi125pt", mesh=(1, 1, 1),

@@ -8,12 +8,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from bricklib_tpu.codegen import brick_apply, dense_apply
-from bricklib_tpu.comm import skin3d_good
-from bricklib_tpu.comm.mesh import make_domain_mesh, shard_map
-from bricklib_tpu.comm.strong import StrongDecomp, exchange_strong_shift
-from bricklib_tpu.core import compare_arrays, from_bricks, random_array, to_bricks
-from bricklib_tpu.stencils import DEFAULT_PARAMS, stencil_by_name
+from brickjax.codegen import brick_apply, dense_apply
+from brickjax.comm import skin3d_good
+from brickjax.comm.mesh import make_domain_mesh, shard_map
+from brickjax.comm.strong import StrongDecomp, exchange_strong_shift
+from brickjax.core import compare_arrays, from_bricks, random_array, to_bricks
+from brickjax.stencils import DEFAULT_PARAMS, stencil_by_name
 
 BD = (4, 4, 8)
 GZ = (4, 4, 8)
@@ -83,42 +83,6 @@ def test_strong_exchange_fills_ghosts(plan):
         assert compare_arrays(got, blk, 1e-7), (dz, row)
 
 
-def test_strong_exchange_remote_bit_exact(plan):
-    """The one-kernel remote-DMA strong exchange must equal the staged
-    gather -> ppermute -> scatter exchange bit-for-bit (the kernel-level
-    form of the reference's per-peer coalesced views,
-    strong/main.cpp:288-320)."""
-    from bricklib_tpu.comm.mesh import make_flat_mesh
-    from bricklib_tpu.comm.strong import exchange_strong_remote
-
-    g, truth, stacked = _build(plan, seed=13)
-    ndev = int(np.prod(MESH))
-    flat_in = stacked.reshape((ndev,) + stacked.shape[3:])
-
-    mesh = make_domain_mesh(MESH)
-    names = mesh.axis_names
-
-    def step(b):
-        return exchange_strong_shift(b[0, 0, 0], plan,
-                                     names)[None, None, None]
-
-    sharded = jax.device_put(jnp.asarray(stacked),
-                             NamedSharding(mesh, P(*names)))
-    want = np.asarray(jax.jit(shard_map(step, mesh, P(*names),
-                                        P(*names)))(sharded))
-    want = want.reshape((ndev,) + want.shape[3:])
-
-    m1 = make_flat_mesh(MESH)
-
-    def step1(b):
-        return exchange_strong_remote(b[0], plan, ("dev",))[None]
-
-    sh1 = jax.device_put(jnp.asarray(flat_in), NamedSharding(m1, P("dev")))
-    got = np.asarray(jax.jit(shard_map(step1, m1, P("dev"),
-                                       P("dev")))(sh1))
-    np.testing.assert_array_equal(got, want)
-
-
 def test_strong_step_vs_global_dense(plan):
     sd = stencil_by_name("mpi7pt")[0]
     g, truth, stacked = _build(plan, seed=9)
@@ -156,23 +120,11 @@ def test_strong_step_vs_global_dense(plan):
 def test_strong_pencil_fast_path_validates():
     """Batched pencil sweep + in-place link exchange on a (2,2,1) mesh
     with deep-ghost ST_ITER=2 (ref: strong/main.cpp:204-213,288-320)."""
-    from bricklib_tpu.drivers import strong
+    from brickjax.drivers import strong
 
     strong.run(dom=(32, 32, 64), sdom=(8, 8, 64), bdim=(4, 4, 8),
                stencil="mpi7pt", st_iter=2, mesh_shape=(2, 2, 1),
                iters=1, validate=True, backend="pencil")
-
-
-def test_strong_driver_remote_exchange_validates():
-    """--exchange remote: cross-device links as one Pallas kernel of
-    remote DMAs over the flat device axis, validated against the global
-    dense twin."""
-    from bricklib_tpu.drivers import strong
-
-    strong.run(dom=(32, 32, 64), sdom=(8, 8, 64), bdim=(4, 4, 8),
-               stencil="mpi7pt", st_iter=2, mesh_shape=(2, 2, 1),
-               iters=1, validate=True, backend="pencil",
-               exchange="remote")
 
 
 def test_strong_cubic_deep_ghost_validates():
@@ -180,7 +132,7 @@ def test_strong_cubic_deep_ghost_validates():
     strong/args.cpp:32) with deep-ghost ST_ITER=2: ONE exchange per
     step, ghost-inclusive sweeps on ALL axes including the i-ghost brick
     ring (i_range (0, GI))."""
-    from bricklib_tpu.drivers import strong
+    from brickjax.drivers import strong
 
     strong.run(dom=(32, 32, 64), sdom=(16, 16, 32), bdim=(4, 4, 8),
                stencil="mpi7pt", st_iter=2, mesh_shape=(2, 1, 1),

@@ -1,7 +1,7 @@
 
-from bricklib_tpu.utils import BitSet, ZMort
-from bricklib_tpu.utils.bitset import allneighbors
-from bricklib_tpu.utils.zmort import zmort_ids
+from brickjax.utils import BitSet, ZMort
+from brickjax.utils.bitset import allneighbors
+from brickjax.utils.zmort import zmort_ids
 
 
 def test_bitset_basic():
